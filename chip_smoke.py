@@ -7,15 +7,24 @@ exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
 2. build: every CUDA kernel of the port, compiled from ``pcp_tpu_torch/ops/csrc``.
-3. kernels: each kernel against its plain PyTorch version at the main path's
-   shapes (b8 x 32768 points, 64 channels, 512x512 grid, the "realistic"
-   occupancy of bench.py), plus edge cases; equality must be exact. Times
+3. kernels: each of the five BEV scatter-max kernels against its plain
+   PyTorch version at the main path's shapes (b8 x 32768 points, 64 channels,
+   512x512 grid, the "realistic" occupancy of bench.py), plus edge cases
+   (all padding, one pillar with -0.0, long runs across tile borders, odd
+   sizes); equality must be exact, for the one-hot kernel within rtol 1.2e-7.
+   Every variant also against the default kernel's output, and the gradient
+   through each kernel forward against that through its plain forward. Times
    (median of CUDA-event timings after warm-up) of the kernel, the plain
    version and one library call, beside the kernel's least possible time.
 4. slice: the lately-fusion ego CenterPoint from
    ``v2x_pointpillar_basic_ego.yaml`` at full width on the card, with weights
-   made from ``--seed``. One b8 forward with every launch count at 0 before
-   it; then b1 on the card against b1 on the CPU; then the forward's time.
+   made from ``--seed``, under each ``MODEL.VFE.PRE_REDUCE`` setting (unset,
+   True, fused, onehot). One b8 forward with every launch count at 0 before
+   it: exactly the setting's kernel must have 1 launch after it; BEV and
+   final boxes must equal the default setting's (that forward runs under
+   ``torch.use_deterministic_algorithms``, the timed ones do not). b1 on the card against b1
+   on the CPU for unset and fused; then the forward's and the stages' times
+   (20 iterations for the default setting, 10 for the others).
 
 The last three lines are the kernels' record (JSON), the card as nvidia-smi
 names it, and ``{"ok": true, "device": ...}``. Without a CUDA device the
@@ -35,9 +44,11 @@ import torch
 REPO = Path(__file__).resolve().parent
 CFG_EGO = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_basic_ego.yaml"
 
-# H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, f32 (non-tensor) ops/s
+# H100 SXM peaks from NVIDIA's data sheet: HBM3 bytes/s, f32 (non-tensor) ops/s,
+# dense bf16 tensor-core ops/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 B, N, C, GRID = 8, 32768, 64, 512
 PC_RANGE = (-51.2, -51.2)
@@ -97,7 +108,16 @@ def phase_build():
                  + ", ".join(str(p.relative_to(REPO)) for p in libs.values()))
 
 
-def _sorted_scatter_inputs(rng, dev):
+def _sort_by_pid(feats, pids):
+    """Numpy features and pids -> CUDA tensors sorted by pid within a sample."""
+    dev = torch.device("cuda", 0)
+    p, order = torch.sort(torch.from_numpy(pids).to(dev), dim=1, stable=True)
+    f = torch.from_numpy(feats).to(dev)
+    f = torch.gather(f, 1, order[..., None].expand(-1, -1, f.shape[2])).contiguous()
+    return f, p.contiguous()
+
+
+def _sorted_scatter_inputs(rng):
     """Pillar-sorted ReLU features and pids as the VFE hands them to the
     kernel: realistic occupancy with 1024 padding rows per sample."""
     hw = GRID * GRID
@@ -107,63 +127,169 @@ def _sorted_scatter_inputs(rng, dev):
     pids = (cy * GRID + cx).astype(np.int32)
     pids[:, -1024:] = hw
     feats = np.maximum(rng.standard_normal((B, N, C)).astype(np.float32), 0.0)
-    p = torch.from_numpy(pids).to(dev)
-    f = torch.from_numpy(feats).to(dev)
-    p, order = torch.sort(p, dim=1, stable=True)
-    f = torch.gather(f, 1, order[..., None].expand(-1, -1, C)).contiguous()
-    return f, p.contiguous()
+    return _sort_by_pid(feats, pids)
+
+
+def kernel_table(bs):
+    """Per kernel: its name, the line of the Pallas kernel it replaces, its
+    public function, the stem of the wrappers of the kernel alone
+    (``<stem>_cuda`` / ``<stem>_plain``), what makes the kernel's inputs from
+    (feats, pids), and the rtol it is held to (0: exact equality)."""
+    def same(f, p):
+        return f, p
+
+    def prereduced(f, p):
+        red, tails = bs.prereduce(f, p)
+        return red.contiguous(), p, tails.contiguous()
+
+    return [
+        ("bev_scatter_max", 341, "bev_scatter_max_sorted", "bev_scatter_max_sorted", same, 0.0),
+        ("bev_scatter_tails", 33, "bev_scatter_max_sorted_prereduced", "bev_scatter_max_tails",
+         prereduced, 0.0),
+        ("bev_scatter_fused", 92, "bev_scatter_max_sorted_fused", "bev_scatter_max_sorted_fused",
+         same, 0.0),
+        ("bev_scatter_onehot", 256, "bev_scatter_max_sorted_onehot",
+         "bev_scatter_max_sorted_onehot", same, bs.ONEHOT_RTOL),
+        ("bev_scatter_runs", 176, "bev_scatter_max_runs", "bev_scatter_max_runs", same, 0.0),
+    ]
+
+
+def _hold(got, want, rtol, what):
+    """Raise unless ``got`` equals ``want``: exactly for rtol 0, else within
+    rtol and atol 0. Returns the largest absolute error."""
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if rtol:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0, msg=lambda m: f"{what}: {m}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{what}: not equal, max_abs_err {err}")
+    return err
+
+
+def onehot_product_ops(pids, hw, tile_cells, chunk, cp):
+    """Tensor-core operations the one-hot kernel does on these pids: one
+    (tile_cells x 16) @ (16 x 3*cp) product per 16 staged rows of a chunk."""
+    b = pids.shape[0]
+    tiles = -(-hw // tile_cells)
+    real = pids < hw
+    tile_of = (pids.long() // tile_cells + torch.arange(b, device=pids.device)[:, None] * tiles)
+    rows = torch.bincount(tile_of[real], minlength=b * tiles)
+    full, rest = rows // chunk, rows % chunk
+    k_steps = (full * (chunk // 16) + (rest + 15) // 16).sum().item()
+    return k_steps * 2 * tile_cells * 16 * 3 * cp
 
 
 def phase_kernels(seed):
-    from pcp_tpu_torch.ops import bev_scatter
+    from pcp_tpu_torch.ops import bev_scatter as bs
 
-    dev = torch.device("cuda", 0)
     rng = np.random.default_rng(seed)
     hw = GRID * GRID
-    feats, pids = _sorted_scatter_inputs(rng, dev)
+    feats, pids = _sorted_scatter_inputs(rng)
 
     # edge cases at the same shapes: every row padding; every point in one
-    # pillar, with some -0.0 features (they must come out as 0)
+    # pillar, with some -0.0 features (they must come out as 0); runs of 100
+    # rows in consecutive cells, which cross every tile border they meet and
+    # every chunk; and a small batch whose N, C and H*W are multiples of
+    # nothing the kernels tile by
     all_pad = torch.full_like(pids, hw)
     one = torch.full_like(pids, 12345)
     neg_zero = feats.clone()
     neg_zero[:, ::7, ::3] = -0.0
-    cases = {"realistic": (feats, pids), "all_padding": (feats, all_pad),
-             "one_pillar": (neg_zero, one)}
-    max_err = 0.0
+    long_runs = torch.arange(N, device=pids.device, dtype=torch.int32) // 100 + 1000
+    long_runs = long_runs[None].repeat(B, 1)
+    long_runs[:, -500:] = hw
+    odd_hw = 20 * 13
+    odd = _sort_by_pid(np.maximum(rng.standard_normal((3, 1000, 24)).astype(np.float32), 0.0),
+                       rng.integers(0, odd_hw + 1, size=(3, 1000)).astype(np.int32))
+    cases = {"realistic": (feats, pids, GRID, GRID), "all_padding": (feats, all_pad, GRID, GRID),
+             "one_pillar": (neg_zero, one, GRID, GRID),
+             "long_runs": (feats, long_runs, GRID, GRID),
+             "odd_shapes": (*odd, 20, 13)}
+    table = kernel_table(bs)
+    max_err = {name: 0.0 for name, *_ in table}
     with torch.inference_mode():
-        for name, (f, p) in cases.items():
-            got = bev_scatter.bev_scatter_max_sorted_cuda(f, p, GRID, GRID)
-            want = bev_scatter.bev_scatter_max_sorted_plain(f, p, GRID, GRID)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            occupied = int((want.amax(-1) > 0).sum())
-            log("kernels", f"bev_scatter_max {name}: max_abs_err {err} "
-                           f"(exact equality required), {occupied} occupied cells")
-            if not torch.equal(got, want):
-                raise AssertionError(f"bev_scatter_max kernel != plain version on {name}")
-            max_err = max(max_err, err)
+        for case, (f, p, h, w) in cases.items():
+            first = None
+            for name, _, public, alone, prep, rtol in table:
+                args = prep(f, p)
+                got = getattr(bs, alone + "_cuda")(*args, h, w)
+                want = getattr(bs, alone + "_plain")(*args, h, w)
+                torch.cuda.synchronize()
+                err = _hold(got, want, rtol, f"{name} kernel vs its plain version on {case}")
+                max_err[name] = max(max_err[name], err)
+                if first is None:
+                    first = got
+                    occupied = int((want.amax(-1) > 0).sum())
+                    log("kernels", f"{case}: {tuple(f.shape)} on {h}x{w}, {occupied} occupied cells")
+                else:
+                    whole = got if alone == public else getattr(bs, public + "_cuda")(f, p, h, w)
+                    _hold(whole, first, rtol, f"{public} vs bev_scatter_max's kernel on {case}")
+                log("kernels", f"  {name}: max_abs_err {err} vs plain "
+                               f"({f'rtol {rtol}, atol 0' if rtol else 'exact equality'} required)")
+                del got, want
+            del first
 
-        kernel_ms = cuda_ms(lambda: bev_scatter.bev_scatter_max_sorted_cuda(feats, pids, GRID, GRID))
-        plain_ms = cuda_ms(lambda: bev_scatter.bev_scatter_max_sorted_plain(feats, pids, GRID, GRID))
-        zeros = torch.zeros((B, hw + 1, C), device=dev)
+    # the shared backward on the card: the gradient through each kernel's
+    # forward against the gradient through its plain forward, same tensors
+    f, p, h, w = cases["odd_shapes"]
+    weight = torch.from_numpy(rng.standard_normal((3, h, w, 24)).astype(np.float32)).cuda()
+    for name, _, public, _, _, rtol in table:
+        grads = []
+        for fwd in (getattr(bs, public + "_cuda"), getattr(bs, public + "_plain")):
+            leaf = f.clone().requires_grad_(True)
+            out = bs.ScatterMax.apply(leaf, p, h, w, fwd, rtol)
+            grads.append(torch.autograd.grad((out * weight).sum(), leaf)[0])
+        public_leaf = f.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad((getattr(bs, public)(public_leaf, p, h, w) * weight).sum(),
+                                         public_leaf)[0])
+        if not (torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])):
+            raise AssertionError(f"{public}: gradient through the kernel != through the plain version")
+        if not grads[0].any():
+            raise AssertionError(f"{public}: gradient is all zero")
+    log("kernels", "backward on odd_shapes: gradient through each kernel forward == through its "
+                   "plain forward (torch.equal), 5 functions")
+
+    records = {}
+    with torch.inference_mode():
+        zeros = torch.zeros((B, hw + 1, C), device=feats.device)
         idx = pids.long()[..., None].expand(B, N, C)
-        library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, feats, "amax",
-                                                          include_self=True))
-    # least time: each input read once and each output written once over the
-    # HBM rate, or one max per input element over the f32 rate
-    bytes_moved = feats.numel() * 4 + pids.numel() * 4 + B * hw * C * 4
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, feats.numel() / F32_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log("kernels", f"bev_scatter_max b{B} n{N} c{C} {GRID}x{GRID}: kernel_ms {kernel_ms:.6f} "
-                   f"plain_ms {plain_ms:.6f} library_ms {library_ms:.6f} (torch.scatter_reduce amax) "
-                   f"bound_ms {bound_ms:.6f} ({bytes_moved} bytes)")
-    return {"name": "bev_scatter_max", "route": "cuda",
-            "source": "pcp_tpu_torch/ops/csrc/bev_scatter_max.cu",
-            "replaces": "pcp_tpu/ops/pallas/bev_scatter.py:341",
-            "launches": None, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+        for name, line, _, alone, prep, _ in table:
+            args = prep(feats, pids)
+            cuda_fn, plain_fn = getattr(bs, alone + "_cuda"), getattr(bs, alone + "_plain")
+            kernel_ms = cuda_ms(lambda: cuda_fn(*args, GRID, GRID))
+            plain_ms = cuda_ms(lambda: plain_fn(*args, GRID, GRID))
+            library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, args[0], "amax",
+                                                              include_self=True))
+            # least time: each input read once and each output written once
+            # over the HBM rate, or the operations over their peak rate: one
+            # max per input element (none for the tails kernel, whose rows
+            # arrive reduced) and, for the one-hot kernel, its bf16 products
+            bytes_moved = sum(t.numel() * 4 for t in args) + B * hw * C * 4
+            t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+            t_ops = 0.0 if name == "bev_scatter_tails" else feats.numel() / F32_OPS_PER_S * 1e3
+            if name == "bev_scatter_onehot":
+                cp = -(-C // 16) * 16
+                t_ops += onehot_product_ops(pids, hw, bs.onehot_tile_cells(C), bs.ONEHOT_CHUNK,
+                                            cp) / BF16_OPS_PER_S * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            log("kernels", f"{name} b{B} n{N} c{C} {GRID}x{GRID}: kernel_ms {kernel_ms:.6f} "
+                           f"plain_ms {plain_ms:.6f} library_ms {library_ms:.6f} "
+                           f"(torch.scatter_reduce amax) bound_ms {bound_ms:.6f} "
+                           f"({bytes_moved} bytes, operations {t_ops:.6f} ms)")
+            records[name] = {
+                "name": name, "route": "cuda", "source": f"pcp_tpu_torch/ops/csrc/{name}.cu",
+                "replaces": f"pcp_tpu/ops/pallas/bev_scatter.py:{line}", "launches": None,
+                "max_abs_err": max_err[name], "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms}
+        grid = torch.empty((B, GRID, GRID, C), device=feats.device)
+        fill_ms = cuda_ms(grid.zero_)
+        log("kernels", f"for scale: zero_() of the (b{B}, {GRID}, {GRID}, {C}) grid alone, the write "
+                       f"every kernel must do: {fill_ms:.6f} ms")
+        pre_ms = cuda_ms(lambda: bs.prereduce(feats, pids))
+        whole_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_prereduced_cuda(feats, pids, GRID, GRID))
+        log("kernels", f"bev_scatter_tails' pre-reduction (torch ops, segmented max and tail flags) "
+                       f"alone: {pre_ms:.6f} ms; bev_scatter_max_sorted_prereduced whole: {whole_ms:.6f} ms")
+    return records
 
 
 def seeded_state_dict(model, seed):
@@ -196,40 +322,17 @@ def seeded_state_dict(model, seed):
                                            else np.float32)) for k, v in sd.items()}
 
 
-def phase_slice(seed):
+# MODEL.VFE.PRE_REDUCE value -> the kernel its forward must launch, once
+SETTINGS = [(None, "bev_scatter_max"), (True, "bev_scatter_tails"),
+            ("fused", "bev_scatter_fused"), ("onehot", "bev_scatter_onehot")]
+
+
+def _card_vs_cpu(model, sd, batch, pre_reduce, pp, post_max):
+    """b1 on the card against b1 on the CPU, same weights and points."""
     from pcp_tpu_torch.entry import build
-    from pcp_tpu_torch.ops import bev_scatter
     from pcp_tpu_torch.utils.box_match import match_surviving_boxes
 
-    cfg, info, model = build(CFG_EGO, device="cuda")
-    sd = seeded_state_dict(model, seed)
-    model.load_state_dict(sd, strict=True)
-    pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
-    post_max = int(pp.NMS_CONFIG.NMS_POST_MAXSIZE)
-    pts = realistic_points(np.random.default_rng(seed + 1), B, N, info.num_point_features)
-    batch = {"points": torch.from_numpy(pts).cuda(),
-             "points_mask": torch.ones((B, N), dtype=torch.bool, device="cuda")}
-
-    with torch.inference_mode():
-        bev_scatter.launches = 0
-        out = model(batch)
-        torch.cuda.synchronize()
-        launches = {"bev_scatter_max": bev_scatter.launches}
-    log("slice", f"one b{B} x {N} forward of the ego model: kernel launches {launches}")
-    if launches["bev_scatter_max"] != 1:
-        raise AssertionError(f"bev_scatter_max launched {launches['bev_scatter_max']} times "
-                             "in one forward, expected 1")
-    fbd = out["final_box_dicts"]
-    boxes, valid = fbd["pred_boxes"], fbd["pred_valid"]
-    if tuple(boxes.shape) != (B, post_max, 7) or not torch.isfinite(boxes).all():
-        raise AssertionError(f"pred_boxes {tuple(boxes.shape)}, finite {bool(torch.isfinite(boxes).all())}")
-    if not valid.any():
-        raise AssertionError("no valid box in the b8 forward")
-    log("slice", f"pred_boxes {tuple(boxes.shape)} finite; valid boxes per cloud "
-                 f"{valid.sum(1).tolist()}")
-
-    # b1 on the card against b1 on the CPU, same weights and points
-    _, _, cpu_model = build(CFG_EGO, device="cpu")
+    _, _, cpu_model = build(CFG_EGO, device="cpu", pre_reduce=pre_reduce)
     cpu_model.load_state_dict(sd, strict=True)
     one = {k: v[:1] for k, v in batch.items()}
     with torch.inference_mode():
@@ -250,17 +353,91 @@ def phase_slice(seed):
         {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
         {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()}, heat,
         top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH), post_max=post_max)
-    log("slice", f"b1 card vs CPU ({cpu_s:.1f} s on the CPU): BEV max_abs_err {bev_err} "
-                 f"(atol 1e-5, rtol 1e-5); head max_abs_err {head_err} (atol 1e-3); "
-                 f"{n_matched} surviving boxes matched under the margin rule")
+    log("slice", f"PRE_REDUCE {pre_reduce}: b1 card vs CPU ({cpu_s:.1f} s on the CPU): BEV "
+                 f"max_abs_err {bev_err} (atol 1e-5, rtol 1e-5); head max_abs_err {head_err} "
+                 f"(atol 1e-3); {n_matched} surviving boxes matched under the margin rule")
 
+
+def phase_slice(seed):
+    """The full-width ego model under every PRE_REDUCE setting. Returns
+    ``{kernel: launches in one forward of its setting}``."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter
+
+    launches, default_out, sd, batch, vfes = {}, None, None, None, {}
+    for pre_reduce, kernel in SETTINGS:
+        cfg, info, model = build(CFG_EGO, device="cuda", pre_reduce=pre_reduce)
+        if sd is None:  # PRE_REDUCE adds no parameter: one weight set for all settings
+            sd = seeded_state_dict(model, seed)
+            pts = realistic_points(np.random.default_rng(seed + 1), B, N, info.num_point_features)
+            batch = {"points": torch.from_numpy(pts).cuda(),
+                     "points_mask": torch.ones((B, N), dtype=torch.bool, device="cuda")}
+        model.load_state_dict(sd, strict=True)
+        pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+        post_max = int(pp.NMS_CONFIG.NMS_POST_MAXSIZE)
+
+        # Sums by index_add_ in front of the scatter use float atomics, whose
+        # order changes from run to run; this one forward runs with PyTorch's
+        # deterministic algorithms so that two settings can be held to equality.
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with torch.inference_mode():
+            bev_scatter.reset_launches()
+            out = model(batch)
+            torch.cuda.synchronize()
+            counts = dict(bev_scatter.launches)
+        torch.use_deterministic_algorithms(False)
+        log("slice", f"PRE_REDUCE {pre_reduce}: one b{B} x {N} forward of the ego model: "
+                     f"kernel launches {counts}")
+        if counts != {k: int(k == kernel) for k in counts}:
+            raise AssertionError(f"PRE_REDUCE {pre_reduce}: expected one launch of {kernel} and "
+                                 f"none of the others, got {counts}")
+        launches[kernel] = counts[kernel]
+        fbd = out["final_box_dicts"]
+        boxes, valid = fbd["pred_boxes"], fbd["pred_valid"]
+        if tuple(boxes.shape) != (B, post_max, 7) or not torch.isfinite(boxes).all():
+            raise AssertionError(f"pred_boxes {tuple(boxes.shape)}, finite "
+                                 f"{bool(torch.isfinite(boxes).all())}")
+        if not valid.any():
+            raise AssertionError("no valid box in the b8 forward")
+        if default_out is None:
+            default_out = out
+            log("slice", f"pred_boxes {tuple(boxes.shape)} finite; valid boxes per cloud "
+                         f"{valid.sum(1).tolist()}")
+        else:
+            bev_err = _hold(out["spatial_features"], default_out["spatial_features"],
+                            bev_scatter.ONEHOT_RTOL if kernel == "bev_scatter_onehot" else 0.0,
+                            f"PRE_REDUCE {pre_reduce}: BEV vs the default setting's")
+            for key, value in default_out["final_box_dicts"].items():
+                if not torch.equal(fbd[key], value):
+                    raise AssertionError(f"PRE_REDUCE {pre_reduce}: {key} differs from the "
+                                         "default setting's")
+            log("slice", f"PRE_REDUCE {pre_reduce}: BEV max_abs_err {bev_err} vs the default "
+                         "setting's; final boxes identical")
+
+        if pre_reduce in (None, "fused"):
+            _card_vs_cpu(model, sd, batch, pre_reduce, pp, post_max)
+
+        iters = 20 if pre_reduce is None else 10
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(batch), warmup=3, iters=iters)
+            stages = stage_ms(model, batch)
+        log("slice", f"PRE_REDUCE {pre_reduce}: forward b{B} x {N} points, full width, seeded "
+                     f"weights, TF32 off: median {ms:.6f} ms over {iters} iterations, "
+                     f"{B / ms * 1e3:.3f} clouds/s")
+        log("slice", f"PRE_REDUCE {pre_reduce}: stages (median ms of 10, CUDA events between "
+                     "stages): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+        vfes[pre_reduce] = model.vfe
+        del model
+
+    # the stage the setting changes, alone and in turns, so that the settings
+    # share the card's state: median over 3 rounds of the median of 20
     with torch.inference_mode():
-        ms = cuda_ms(lambda: model(batch), warmup=3, iters=20)
-        stages = stage_ms(model, batch)
-    log("slice", f"forward b{B} x {N} points, full width, seeded weights, TF32 off: "
-                 f"median {ms:.6f} ms over 20 iterations, {B / ms * 1e3:.3f} clouds/s")
-    log("slice", "stages (median ms of 10, CUDA events between stages): "
-                 + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+        rounds = {k: [] for k in vfes}
+        for _ in range(3):
+            for k, vfe in vfes.items():
+                rounds[k].append(cuda_ms(lambda: vfe(batch)))
+    log("slice", "vfe alone, settings in turns (median of 3 rounds of the median of 20, ms): "
+                 + ", ".join(f"PRE_REDUCE {k}: {statistics.median(v):.6f}" for k, v in rounds.items()))
     return launches
 
 
@@ -299,9 +476,11 @@ def main(argv=None):
 
     card = phase_device()
     phase_build()
-    record = phase_kernels(args.seed)
-    record["launches"] = phase_slice(args.seed)["bev_scatter_max"]
-    print(json.dumps({"kernels": [record]}))
+    records = phase_kernels(args.seed)
+    for kernel, count in phase_slice(args.seed).items():
+        records[kernel]["launches"] = count
+    # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
+    print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

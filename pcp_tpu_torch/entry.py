@@ -16,14 +16,18 @@ from .models import DatasetInfo, build_network
 CFG_EGO = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_ego.yaml"
 
 
-def build(cfg_path=CFG_EGO, device="cuda"):
+def build(cfg_path=CFG_EGO, device="cuda", pre_reduce=None):
     """Returns (cfg, info, model) for the YAML config at ``cfg_path``, with the
     model on ``device`` (default "cuda": raises where there is no GPU). A
-    relative path that does not exist is taken from the repository root."""
+    relative path that does not exist is taken from the repository root.
+    ``pre_reduce`` (True, "fused" or "onehot"), if given, replaces the
+    config's ``MODEL.VFE.PRE_REDUCE`` and so selects the VFE's scatter kernel."""
     path = Path(cfg_path)
     if not path.is_absolute() and not path.exists():
         path = ROOT_DIR / path
     cfg = cfg_from_yaml_file(path, CfgDict())
+    if pre_reduce is not None:
+        cfg.MODEL["VFE"]["PRE_REDUCE"] = pre_reduce
     info = DatasetInfo.from_data_cfg(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset_info=info,
                           device=device)

@@ -3,14 +3,19 @@
 Counterpart of ``pcp_tpu/models/vfe/dynamic_pillar_vfe.py`` (its sorted
 pipeline). Points are sorted by flat pillar id; per-pillar means and the
 non-last PFN layers' max-pool go through sorted segment totals, and the last
-layer's max-pool writes the dense BEV grid through ``bev_scatter_max_sorted``
-(the CUDA kernel on the card). Features are [raw | f_cluster | f_center]
+layer's max-pool writes the dense BEV grid through one of the scatter-max
+functions of ``ops/bev_scatter.py`` (a CUDA kernel each on the card), chosen
+by ``PRE_REDUCE`` as in the JAX package: unset -> ``bev_scatter_max_sorted``,
+``True`` -> ``..._prereduced``, ``"fused"`` -> ``..._fused``, ``"onehot"`` ->
+``..._onehot`` (strings in any case). Features are [raw | f_cluster | f_center]
 (+ distance); a PFN layer is Linear (no bias) -> BatchNorm(eps 1e-3) -> ReLU.
 """
 import torch
 from torch import nn
 
-from ...ops.bev_scatter import bev_scatter_max_sorted
+from ...ops.bev_scatter import (bev_scatter_max_sorted, bev_scatter_max_sorted_fused,
+                                bev_scatter_max_sorted_onehot,
+                                bev_scatter_max_sorted_prereduced)
 from ...ops.sorted_segments import segment_total_to_points, sort_by_pid
 from ..model_utils.norm import MaskedBatchNorm
 
@@ -45,14 +50,22 @@ def pillar_ids(points, mask, point_cloud_range, voxel_size, grid_size):
     return torch.where(mask & in_range, coords[..., 1] * nx + coords[..., 0], nx * ny).to(torch.int32)
 
 
+def scatter_for(pre_reduce):
+    """The scatter-max function that a ``PRE_REDUCE`` value selects."""
+    if isinstance(pre_reduce, str) and pre_reduce.lower() == "onehot":
+        return bev_scatter_max_sorted_onehot
+    if isinstance(pre_reduce, str) and pre_reduce.lower() == "fused":
+        return bev_scatter_max_sorted_fused
+    if bool(pre_reduce):
+        return bev_scatter_max_sorted_prereduced
+    return bev_scatter_max_sorted
+
+
 class DynamicPillarVFE(nn.Module):
     def __init__(self, model_cfg, num_point_features, voxel_size, grid_size, point_cloud_range):
         super().__init__()
-        if model_cfg.get("PRE_REDUCE", False):
-            raise NotImplementedError(
-                f"VFE PRE_REDUCE={model_cfg['PRE_REDUCE']!r}: its scatter kernels are not "
-                "ported yet (ROADMAP B2-B4); leave PRE_REDUCE unset")
         self.model_cfg = model_cfg
+        self.scatter_max = scatter_for(model_cfg.get("PRE_REDUCE", False))
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.grid_size = tuple(int(g) for g in grid_size)
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
@@ -109,7 +122,7 @@ class DynamicPillarVFE(nn.Module):
                 features = torch.cat([features, back], -1)
 
         final = torch.where(valid_s[..., None], features, 0.0).contiguous()
-        bev = bev_scatter_max_sorted(final, pid_s.contiguous(), ny, nx)
+        bev = self.scatter_max(final, pid_s.contiguous(), ny, nx)
         out = dict(batch)
         out["pillar_features"] = bev.reshape(b, ny * nx, -1)
         return out

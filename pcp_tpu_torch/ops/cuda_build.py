@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C entry point and compiles on its own
 into ``<repo>/build/lib<name>-<hash>.so`` for ``sm_90a``. The hash covers the
-source and the flags, so an edited source builds anew and an unchanged one is
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+builds anew and an unchanged one is
 loaded as it is. Nothing is built at import: the first call that needs a
 kernel builds it, and :func:`build` builds several at once, one nvcc process
 per source, all started together.
@@ -31,8 +32,9 @@ def nvcc_path():
 
 
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

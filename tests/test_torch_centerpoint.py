@@ -5,6 +5,8 @@ the same weights in both packages, the same points. Tolerances are those of
 tests/test_full_model_parity.py: BEV 2e-4/1e-4, backbone 2e-3/1e-3, head
 3e-3/1e-3, and surviving boxes under the margin rule.
 """
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,18 +17,30 @@ from pcp_tpu_torch.utils.box_match import match_surviving_boxes
 from torch_port_helpers import MODEL_CFG, build_pair, clustered_points
 
 
-@pytest.fixture(scope="module")
-def outputs():
+def _forward_pair(model_cfg=None):
     rng = np.random.default_rng(11)
     pts = clustered_points(rng, 2, 3000)
     mask = np.ones(pts.shape[:2], bool)
     mask[1, -300:] = False  # padding rows
-    jmodel, variables, tmodel = build_pair(seed=3)
+    jmodel, variables, tmodel = build_pair(seed=3, model_cfg=model_cfg)
     jout = jmodel.apply(variables, {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask),
                                     "batch_size": 2}, train=False)
     with torch.inference_mode():
         tout = tmodel({"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)})
     return jout, tout
+
+
+@pytest.fixture(scope="module")
+def outputs():
+    return _forward_pair()
+
+
+@pytest.fixture(scope="module")
+def outputs_fused():
+    """The same models and points with ``PRE_REDUCE: fused`` in both packages."""
+    cfg = copy.deepcopy(MODEL_CFG)
+    cfg["VFE"]["PRE_REDUCE"] = "fused"
+    return _forward_pair(cfg)
 
 
 def _nhwc(t):
@@ -66,8 +80,30 @@ def test_final_boxes_match(outputs):
     np.testing.assert_array_equal(got["pred_labels"][got["pred_valid"]], 1)
 
 
-def test_cpu_forward_launches_no_kernel(outputs):
-    assert bev_scatter.launches == 0
+def test_cpu_forward_launches_no_kernel(outputs, outputs_fused):
+    assert not any(bev_scatter.launches.values())
+
+
+def test_fused_bev_and_backbone_match(outputs_fused):
+    test_bev_and_backbone_match(outputs_fused)
+
+
+@pytest.mark.parametrize("branch", ["hm", "center", "center_z", "dim", "rot"])
+def test_fused_head_branch_matches(outputs_fused, branch):
+    test_head_branch_matches(outputs_fused, branch)
+
+
+def test_fused_final_boxes_match(outputs_fused):
+    test_final_boxes_match(outputs_fused)
+
+
+def test_fused_equals_default_in_the_port(outputs, outputs_fused):
+    """A max does no rounding: the fused path gives the default path's BEV
+    and boxes exactly."""
+    for key in ("spatial_features", "spatial_features_2d"):
+        assert torch.equal(outputs[1][key], outputs_fused[1][key]), key
+    for key, value in outputs[1]["final_box_dicts"].items():
+        assert torch.equal(value, outputs_fused[1]["final_box_dicts"][key]), key
 
 
 @pytest.mark.parametrize("num_class", [1, 3])

@@ -84,10 +84,69 @@ def test_pids_match_on_pillar_borders():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+PRE_REDUCE = [True, "fused", "Fused", "onehot"]
+
+
+@pytest.fixture(scope="module")
+def pre_reduce_pairs(vfe_pair):
+    """The JAX and the port's VFE under each PRE_REDUCE value, with the
+    weights of ``vfe_pair`` (the setting adds no parameter)."""
+    _, jvars, tvfe = vfe_pair
+    pairs = {}
+    for value in PRE_REDUCE:
+        cfg = dict(VFE_CFG, PRE_REDUCE=value)
+        port = DynamicPillarVFE(cfg, **GEOM).eval()
+        port.load_state_dict(tvfe.state_dict(), strict=True)
+        pairs[value] = (JaxVFE(model_cfg=CfgDict(cfg), **GEOM), port)
+    return jvars, pairs
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("value", PRE_REDUCE, ids=[repr(v) for v in PRE_REDUCE])
+def test_pillar_features_match_under_pre_reduce(pre_reduce_pairs, value, case):
+    jvars, pairs = pre_reduce_pairs
+    jvfe, tvfe = pairs[value]
+    pts, mask = _points(case, np.random.default_rng(10 + CASES.index(case)))
+    want = np.asarray(jvfe.apply(jvars, {"points": jnp.asarray(pts),
+                                         "points_mask": jnp.asarray(mask)},
+                                 train=False)["pillar_features"])
+    with torch.inference_mode():
+        got = tvfe({"points": torch.from_numpy(pts),
+                    "points_mask": torch.from_numpy(mask)})["pillar_features"].numpy()
+    assert got.shape == want.shape == (2, GRID * GRID, 32)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
+    if case == "empty":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("value", PRE_REDUCE, ids=[repr(v) for v in PRE_REDUCE])
+def test_pre_reduce_equals_default_path(vfe_pair, pre_reduce_pairs, value):
+    """Each setting's scatter function, and through it the same
+    ``pillar_features`` as the port's default path: exactly, the one-hot
+    variant within rtol 1.2e-7."""
+    from pcp_tpu_torch.ops import bev_scatter
+
+    want_fn = {True: bev_scatter.bev_scatter_max_sorted_prereduced,
+               "fused": bev_scatter.bev_scatter_max_sorted_fused,
+               "onehot": bev_scatter.bev_scatter_max_sorted_onehot}[
+                   value.lower() if isinstance(value, str) else value]
+    tvfe = pre_reduce_pairs[1][value][1]
+    assert tvfe.scatter_max is want_fn
+    assert vfe_pair[2].scatter_max is bev_scatter.bev_scatter_max_sorted
+    pts, mask = _points("padding_and_out_of_range", np.random.default_rng(21))
+    batch = {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)}
+    with torch.inference_mode():
+        got = tvfe(batch)["pillar_features"].numpy()
+        want = vfe_pair[2](batch)["pillar_features"].numpy()
+    assert want.any()
+    if want_fn is bev_scatter.bev_scatter_max_sorted_onehot:
+        np.testing.assert_allclose(got, want, rtol=1.2e-7, atol=0)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
 def test_pre_reduce_and_training_raise():
-    with pytest.raises(NotImplementedError, match="B2-B4"):
-        DynamicPillarVFE(dict(VFE_CFG, PRE_REDUCE="fused"), **GEOM)
-    vfe = DynamicPillarVFE(VFE_CFG, **GEOM).train()
+    vfe = DynamicPillarVFE(dict(VFE_CFG, PRE_REDUCE="fused"), **GEOM).train()
     pts, mask = _points("plain", np.random.default_rng(0))
     with pytest.raises(NotImplementedError, match="A6"):
         vfe({"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)})
