@@ -6,16 +6,21 @@ Phases, each printing its own lines; a failing phase raises and the script
 exits non-zero:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN.
-2. build: every CUDA kernel of the port, compiled from ``pcp_tpu_torch/ops/csrc``.
+2. build: every CUDA kernel of the port, compiled from ``pcp_tpu_torch/ops/csrc``
+   with ``-Xptxas -v``; for the fused and the one-hot kernel, what ptxas
+   printed and registers, shared memory, spills and resident blocks an SM.
 3. kernels: each of the five BEV scatter-max kernels against its plain
    PyTorch version at the main path's shapes (b8 x 32768 points, 64 channels,
    512x512 grid, the "realistic" occupancy of bench.py), plus edge cases
-   (all padding, one pillar with -0.0, long runs across tile borders, odd
-   sizes); equality must be exact, for the one-hot kernel within rtol 1.2e-7.
+   (all padding, one pillar with -0.0, long runs across tile borders, about
+   100 real rows in the whole batch, a few crowded tiles between long empty
+   stretches, odd sizes); equality must be exact, for the one-hot kernel within rtol 1.2e-7.
    Every variant also against the default kernel's output, and the gradient
    through each kernel forward against that through its plain forward. Times
-   (median of CUDA-event timings after warm-up) of the kernel, the plain
-   version and one library call, beside the kernel's least possible time.
+   (median of 20 CUDA-event timings after warm-up, one call a timing) of the
+   kernel, the plain version and one library call, beside the kernel's least
+   possible time; and the kernel's device time (5 launches in a row a
+   timing, so that the host's way to the launch does not count).
 4. slice: the lately-fusion ego CenterPoint from
    ``v2x_pointpillar_basic_ego.yaml`` at full width on the card, with weights
    made from ``--seed``, under each ``MODEL.VFE.PRE_REDUCE`` setting (unset,
@@ -71,18 +76,23 @@ def realistic_points(rng, b, n, num_features, n_pillars=4096):
     return pts
 
 
-def cuda_ms(fn, warmup=3, iters=20):
-    """Median milliseconds of ``fn()`` over ``iters`` CUDA-event timings."""
+def cuda_ms(fn, warmup=3, iters=20, reps=1):
+    """Median milliseconds of ``fn()`` over ``iters`` CUDA-event timings, each
+    around ``reps`` calls in a row. With one call the card is idle when the
+    first event is recorded, so the time the host takes to reach the launch
+    counts; with several in a row the card always has the next launch queued
+    and the time is the device's alone."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -106,6 +116,14 @@ def phase_build():
     libs = cuda_build.build()
     log("build", f"{len(libs)} kernel libraries in {time.perf_counter() - t0:.3f} s: "
                  + ", ".join(str(p.relative_to(REPO)) for p in libs.values()))
+    from pcp_tpu_torch.ops import bev_scatter as bs
+
+    for name in ("bev_scatter_fused", "bev_scatter_onehot"):
+        for line in cuda_build.build_log(name).splitlines():
+            if "Used" in line or "spill" in line:
+                log("build", f"{name} ptxas: {line.strip()}")
+        for c in (C, 24):
+            log("build", f"{name} at c{c}: {bs.stream_kernel_resources(name, c)}")
 
 
 def _sort_by_pid(feats, pids):
@@ -165,17 +183,23 @@ def _hold(got, want, rtol, what):
     return err
 
 
-def onehot_product_ops(pids, hw, tile_cells, chunk, cp):
-    """Tensor-core operations the one-hot kernel does on these pids: one
-    (tile_cells x 16) @ (16 x 3*cp) product per 16 staged rows of a chunk."""
-    b = pids.shape[0]
-    tiles = -(-hw // tile_cells)
-    real = pids < hw
-    tile_of = (pids.long() // tile_cells + torch.arange(b, device=pids.device)[:, None] * tiles)
-    rows = torch.bincount(tile_of[real], minlength=b * tiles)
-    full, rest = rows // chunk, rows % chunk
-    k_steps = (full * (chunk // 16) + (rest + 15) // 16).sum().item()
-    return k_steps * 2 * tile_cells * 16 * 3 * cp
+def onehot_product_ops(pids, hw, tile_cells, chunk, span_tiles, cp):
+    """Tensor-core operations the one-hot kernel does on these sorted pids,
+    counted as its walk makes the chunks. A block takes ``span_tiles`` tiles
+    of one sample; its windows of ``chunk`` rows start at the span's first
+    row, and a chunk is what one window holds of one tile, so a tile that
+    straddles a window's border costs two. Every chunk is one
+    (tile_cells x chunk) @ (chunk x 3*cp) product, where cp is the channels
+    padded to the kernel's groups."""
+    b, n = pids.shape
+    tile = pids.long() // tile_cells
+    span_cell0 = tile // span_tiles * (span_tiles * tile_cells)
+    first_row = torch.searchsorted(pids.long(), span_cell0)  # of the row's span
+    window = (torch.arange(n, device=pids.device) - first_row) // chunk
+    starts = torch.ones_like(pids, dtype=torch.bool)  # the row opens a chunk
+    starts[:, 1:] = (tile[:, 1:] != tile[:, :-1]) | (window[:, 1:] != window[:, :-1])
+    chunks = (starts & (pids < hw)).sum().item()
+    return chunks * 2 * tile_cells * chunk * 3 * cp
 
 
 def phase_kernels(seed):
@@ -188,8 +212,11 @@ def phase_kernels(seed):
     # edge cases at the same shapes: every row padding; every point in one
     # pillar, with some -0.0 features (they must come out as 0); runs of 100
     # rows in consecutive cells, which cross every tile border they meet and
-    # every chunk; and a small batch whose N, C and H*W are multiples of
-    # nothing the kernels tile by
+    # every chunk; about 100 real rows in the whole batch, so that whole spans
+    # of tiles are empty; six crowded tiles a sample (5000 rows each, many
+    # chunks a tile, several tails a chunk) between long empty stretches; and
+    # a small batch whose N, C and H*W are multiples of nothing the kernels
+    # tile by
     all_pad = torch.full_like(pids, hw)
     one = torch.full_like(pids, 12345)
     neg_zero = feats.clone()
@@ -197,12 +224,23 @@ def phase_kernels(seed):
     long_runs = torch.arange(N, device=pids.device, dtype=torch.int32) // 100 + 1000
     long_runs = long_runs[None].repeat(B, 1)
     long_runs[:, -500:] = hw
+    nearly_empty = np.full((B, N), hw, dtype=np.int32)
+    for i in range(B):
+        nearly_empty[i, :12 + i] = rng.integers(0, hw, size=12 + i)
+    nearly_empty = torch.from_numpy(np.sort(nearly_empty, axis=1)).to(pids.device)
+    few_tiles = np.full((B, N), hw, dtype=np.int32)
+    for i in range(B):
+        starts = rng.choice(hw // 64 - 1, size=6, replace=False) * 64 + rng.integers(0, 64)
+        few_tiles[i, :30000] = (np.repeat(starts, 5000) + rng.integers(0, 64, size=30000))
+    few_tiles = torch.from_numpy(np.sort(few_tiles, axis=1)).to(pids.device)
     odd_hw = 20 * 13
     odd = _sort_by_pid(np.maximum(rng.standard_normal((3, 1000, 24)).astype(np.float32), 0.0),
                        rng.integers(0, odd_hw + 1, size=(3, 1000)).astype(np.int32))
     cases = {"realistic": (feats, pids, GRID, GRID), "all_padding": (feats, all_pad, GRID, GRID),
              "one_pillar": (neg_zero, one, GRID, GRID),
              "long_runs": (feats, long_runs, GRID, GRID),
+             "nearly_empty": (feats, nearly_empty, GRID, GRID),
+             "few_tiles": (feats, few_tiles, GRID, GRID),
              "odd_shapes": (*odd, 20, 13)}
     table = kernel_table(bs)
     max_err = {name: 0.0 for name, *_ in table}
@@ -255,7 +293,11 @@ def phase_kernels(seed):
         for name, line, _, alone, prep, _ in table:
             args = prep(feats, pids)
             cuda_fn, plain_fn = getattr(bs, alone + "_cuda"), getattr(bs, alone + "_plain")
+            # "ms" keys: one call per timing, which adds the host's way to the
+            # launch; device_ms: 5 launches in a row per timing, so that the
+            # card never waits for the host
             kernel_ms = cuda_ms(lambda: cuda_fn(*args, GRID, GRID))
+            device_ms = cuda_ms(lambda: cuda_fn(*args, GRID, GRID), reps=5)
             plain_ms = cuda_ms(lambda: plain_fn(*args, GRID, GRID))
             library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, args[0], "amax",
                                                               include_self=True))
@@ -267,12 +309,14 @@ def phase_kernels(seed):
             t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
             t_ops = 0.0 if name == "bev_scatter_tails" else feats.numel() / F32_OPS_PER_S * 1e3
             if name == "bev_scatter_onehot":
-                cp = -(-C // 16) * 16
-                t_ops += onehot_product_ops(pids, hw, bs.onehot_tile_cells(C), bs.ONEHOT_CHUNK,
-                                            cp) / BF16_OPS_PER_S * 1e3
+                plan = bs.onehot_plan(B, C, hw, bs._sm_count(feats.device))
+                cp = -(-C // plan["group"]) * plan["group"]
+                t_ops += onehot_product_ops(pids, hw, bs.ONEHOT_TILE_CELLS, bs.ONEHOT_CHUNK,
+                                            plan["span_tiles"], cp) / BF16_OPS_PER_S * 1e3
             bound_ms = max(t_bytes, t_ops)
             log("kernels", f"{name} b{B} n{N} c{C} {GRID}x{GRID}: kernel_ms {kernel_ms:.6f} "
-                           f"plain_ms {plain_ms:.6f} library_ms {library_ms:.6f} "
+                           f"(5 launches a timing: device_ms {device_ms:.6f}) plain_ms "
+                           f"{plain_ms:.6f} library_ms {library_ms:.6f} "
                            f"(torch.scatter_reduce amax) bound_ms {bound_ms:.6f} "
                            f"({bytes_moved} bytes, operations {t_ops:.6f} ms)")
             records[name] = {
@@ -280,11 +324,18 @@ def phase_kernels(seed):
                 "replaces": f"pcp_tpu/ops/pallas/bev_scatter.py:{line}", "launches": None,
                 "max_abs_err": max_err[name], "ms": kernel_ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms}
+                "library_ms": library_ms, "device_ms": device_ms}
         grid = torch.empty((B, GRID, GRID, C), device=feats.device)
-        fill_ms = cuda_ms(grid.zero_)
+        fill_ms, fill_device_ms = cuda_ms(grid.zero_), cuda_ms(grid.zero_, reps=5)
         log("kernels", f"for scale: zero_() of the (b{B}, {GRID}, {GRID}, {C}) grid alone, the write "
-                       f"every kernel must do: {fill_ms:.6f} ms")
+                       f"every kernel must do: {fill_ms:.6f} ms (5 calls a timing: device_ms "
+                       f"{fill_device_ms:.6f})")
+        # the streaming kernels on a batch of padding only: one search a block,
+        # no row, every tile written as zeros -- their write path alone
+        for name in ("bev_scatter_fused", "bev_scatter_onehot"):
+            fn = getattr(bs, name.replace("bev_scatter_", "bev_scatter_max_sorted_") + "_cuda")
+            pad_ms = cuda_ms(lambda: fn(feats, all_pad, GRID, GRID), reps=5)
+            log("kernels", f"{name} on the all_padding batch (zeros only): device_ms {pad_ms:.6f}")
         pre_ms = cuda_ms(lambda: bs.prereduce(feats, pids))
         whole_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_prereduced_cuda(feats, pids, GRID, GRID))
         log("kernels", f"bev_scatter_tails' pre-reduction (torch ops, segmented max and tail flags) "

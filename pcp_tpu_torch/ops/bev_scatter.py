@@ -39,6 +39,7 @@ that tie for its max, so the weights of a cell sum to 1;
 ``torch.scatter_reduce`` has its own rule for ties.
 """
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -53,10 +54,18 @@ launches = {"bev_scatter_max": 0, "bev_scatter_tails": 0, "bev_scatter_fused": 0
 # Shared-memory bytes of one block's tile (tile cells x C channels x 4 B).
 _TILE_BYTES = 16384
 _MAX_GRID_Y = 65535
-# Rows a block stages at a time for its in-kernel segmented max. The plain
-# versions sweep chunks of the same length; no result depends on it.
-FUSED_CHUNK = 16
-ONEHOT_CHUNK = 16
+# Rows a block stages at a time for its in-kernel segmented max: kChunk of
+# csrc/bev_stream.cuh, one length for both streaming kernels (the K of the
+# one-hot kernel's matrix instruction). The plain versions sweep chunks of
+# the same length; no result depends on it.
+FUSED_CHUNK = ONEHOT_CHUNK = 16
+# Cells of one block's tile in the one-hot kernel, at every width: the M of
+# the warpgroup matrix instruction (kTileCells of csrc/bev_scatter_onehot.cu).
+ONEHOT_TILE_CELLS = 64
+# The streaming kernels (fused, one-hot): a block walks a span of tiles, and
+# the spans are cut so that every SM gets about this many blocks.
+_STREAM_BLOCKS_PER_SM = 32
+_FUSED_GROUP = 128  # most channels one block of the fused kernel takes
 # The one-hot forward rounds by at most 2^-23 relative; its backward takes a
 # point for a cell's max within this tolerance.
 ONEHOT_RTOL = 1.2e-7
@@ -113,10 +122,16 @@ def _dispatch(feats, pids, h, w, plain, cuda, rtol=0.0):
 
 # ------------------------------------------------------------ kernel launch
 
-def _launch(name, feats, pids, h, w, tails=None, tile_cells=None, chunk=None):
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(name, feats, pids, h, w, tails=None, plan=None):
     """Check the inputs, allocate the grid and launch kernel ``name`` on the
     current stream. C signature: (feats, pids, [tails,] out, b, n, hw, c,
-    tile_cells, [chunk,] stream) -> CUDA error code."""
+    tile_cells, stream) -> CUDA error code; for the streaming kernels the
+    numbers of ``plan(b, c, hw, sms)`` stand in place of tile_cells."""
     tensors = [feats, pids] + ([] if tails is None else [tails])
     if not all(t.is_cuda and t.device == feats.device for t in tensors):
         raise ValueError(f"{name} kernel needs its tensors on one CUDA device, got "
@@ -135,9 +150,11 @@ def _launch(name, feats, pids, h, w, tails=None, tile_cells=None, chunk=None):
     out = torch.empty((b, h, w, c), dtype=torch.float32, device=feats.device)
     if out.numel() == 0:
         return out
-    if tile_cells is None:
-        tile_cells = max(1, _TILE_BYTES // (4 * c))
-    ints = [b, n, h * w, c, tile_cells] + ([] if chunk is None else [chunk])
+    if plan is None:
+        ints = [b, n, h * w, c, max(1, _TILE_BYTES // (4 * c))]
+    else:
+        sms = _sm_count(feats.device)
+        ints = [b, n, h * w, c, *plan(b, c, h * w, sms).values()]
     fn = getattr(cuda_build.load(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1) + [ctypes.c_int] * len(ints)
                    + [ctypes.c_void_p])
@@ -265,7 +282,25 @@ def bev_scatter_max_sorted_fused_plain(feats, pids, h, w, chunk=FUSED_CHUNK):
 
 def bev_scatter_max_sorted_fused_cuda(feats, pids, h, w):
     """Launch ``bev_scatter_fused``."""
-    return _launch("bev_scatter_fused", feats, pids, h, w, chunk=FUSED_CHUNK)
+    return _launch("bev_scatter_fused", feats, pids, h, w, plan=fused_plan)
+
+
+def span_tiles(b, tiles, groups, sms):
+    """Tiles a block of a streaming kernel walks: a sample's ``tiles`` are cut
+    into spans so that the launch has about ``_STREAM_BLOCKS_PER_SM`` blocks
+    for each of the card's ``sms`` SMs, at least one tile and at most a
+    sample's tiles a block."""
+    return min(max(tiles, 1), max(1, -(-b * tiles * groups // (_STREAM_BLOCKS_PER_SM * sms))))
+
+
+def fused_plan(b, c, hw, sms):
+    """Launch numbers of the fused kernel, in its C signature's order: a
+    block takes a group of at most 128 channels (one a thread) and tiles of
+    ``_TILE_BYTES`` at that width."""
+    group = max(1, min(c, _FUSED_GROUP))
+    tile_cells = max(1, _TILE_BYTES // (4 * group))
+    spans = span_tiles(b, -(-hw // tile_cells), -(-c // group), sms)
+    return {"tile_cells": tile_cells, "span_tiles": spans, "group": group}
 
 
 # --- one-hot product, tensor cores
@@ -293,17 +328,41 @@ def bev_scatter_max_sorted_onehot_plain(feats, pids, h, w, chunk=ONEHOT_CHUNK):
 
 
 def bev_scatter_max_sorted_onehot_cuda(feats, pids, h, w):
-    """Launch ``bev_scatter_onehot`` (wmma bf16 fragments, f32 accumulators).
-    Its tile and chunk are multiples of 16, the fragment size."""
-    return _launch("bev_scatter_onehot", feats, pids, h, w,
-                   tile_cells=onehot_tile_cells(feats.shape[2]), chunk=ONEHOT_CHUNK)
+    """Launch ``bev_scatter_onehot`` (wgmma m64nNk16 bf16, f32 sums in
+    registers)."""
+    return _launch("bev_scatter_onehot", feats, pids, h, w, plan=onehot_plan)
 
 
-def onehot_tile_cells(c):
-    """Cells of one block's tile in the one-hot kernel: the shared tile size
-    at C rounded up to 16 channels, a multiple of 16 cells."""
-    cp = -(-max(c, 1) // 16) * 16
-    return max(16, _TILE_BYTES // (4 * cp) // 16 * 16)
+def onehot_group(c):
+    """Channels one block of the one-hot kernel takes, the N of its matrix
+    instruction: 32 for grids of at most 32 channels, else 64 (wider grids
+    go over more blocks, narrower ones mask the unused columns)."""
+    return 32 if c <= 32 else 64
+
+
+def onehot_plan(b, c, hw, sms):
+    """Launch numbers of the one-hot kernel, in its C signature's order."""
+    group = onehot_group(c)
+    spans = span_tiles(b, -(-hw // ONEHOT_TILE_CELLS), -(-c // group), sms)
+    return {"span_tiles": spans, "group": group}
+
+
+def stream_kernel_resources(name, c):
+    """What kernel ``name`` (``bev_scatter_fused`` or ``bev_scatter_onehot``)
+    uses as built, at ``c`` channels: registers a thread, static and dynamic
+    shared memory, local (spill) bytes a thread and the blocks an SM holds,
+    from the CUDA runtime's function attributes and occupancy calculator."""
+    plan = {"bev_scatter_fused": fused_plan, "bev_scatter_onehot": onehot_plan}[name](1, c, 1, 1)
+    fn = getattr(cuda_build.load(name), f"{name}_resources")
+    del plan["span_tiles"]  # what is left sizes a block: (tile_cells,) group
+    fn.argtypes = [ctypes.c_int] * len(plan) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    res = (ctypes.c_int * 5)()
+    err = fn(*plan.values(), res)
+    if err:
+        raise RuntimeError(f"{name}_resources failed with CUDA error {err}")
+    return dict(zip(("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm"),
+                    res), **plan)
 
 
 # --- one store per run of a pid

@@ -47,36 +47,4 @@ __device__ __forceinline__ void write_tile(float* __restrict__ o, const float* t
   }
 }
 
-// Segmented running max over one chunk of a tile's point range. Every thread
-// of the block calls it. Rows [c0, c0 + rows) of the sample (features f, c
-// channels; sorted pids p) are staged into buf0 and their cells (pid - cell0)
-// into cid; then log2(rows) sweep steps leave in every row the max over the
-// rows of its own cell at or before it in the chunk, so the last row of each
-// cell's run holds the run's max. A step reads what the step before wrote,
-// so the two buffers take turns with a barrier between steps. Returns the
-// buffer that holds the result; the block is synchronised on return.
-__device__ __forceinline__ float* sweep_chunk(const float* __restrict__ f,
-                                              const int* __restrict__ p, int c0, int rows,
-                                              int c, int cell0, float* buf0, float* buf1,
-                                              int* cid) {
-  const int len = rows * c;
-  const float* __restrict__ src_rows = f + (int64_t)c0 * c;
-  for (int j = threadIdx.x; j < rows; j += blockDim.x) cid[j] = p[c0 + j] - cell0;
-  for (int e = threadIdx.x; e < len; e += blockDim.x) buf0[e] = src_rows[e];
-  __syncthreads();
-  float* src = buf0;
-  float* dst = buf1;
-  for (int d = 1; d < rows; d <<= 1) {
-    for (int e = threadIdx.x; e < len; e += blockDim.x) {
-      const int j = e / c;
-      float v = src[e];
-      if (j >= d && cid[j - d] == cid[j]) v = fmaxf(v, src[e - d * c]);
-      dst[e] = v;
-    }
-    __syncthreads();
-    float* tmp = src; src = dst; dst = tmp;
-  }
-  return src;
-}
-
 }  // namespace bev

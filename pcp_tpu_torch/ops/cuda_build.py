@@ -6,7 +6,9 @@ source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
 builds anew and an unchanged one is
 loaded as it is. Nothing is built at import: the first call that needs a
 kernel builds it, and :func:`build` builds several at once, one nvcc process
-per source, all started together.
+per source, all started together. nvcc runs with ``-Xptxas -v``; what it
+printed (registers, shared memory and spills of each kernel) is kept beside
+the library and read with :func:`build_log`.
 """
 import ctypes
 import hashlib
@@ -18,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libraries = {}
 
@@ -58,10 +60,16 @@ def build(names=None):
         if proc.returncode:
             errors.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
         else:
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return {name: library_path(name) for name in names}
+
+
+def build_log(name):
+    """nvcc's output from the build of kernel library ``name``."""
+    return build([name])[name].with_suffix(".log").read_text()
 
 
 def load(name):

@@ -7,6 +7,9 @@ one-hot variant is held to rtol 1.2e-7. The backward is held against
 ``jax.grad``. The CUDA kernels themselves are held against the plain versions
 on the card by chip_smoke.py.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,7 +115,7 @@ def test_variant_matches_with_runs_crossing_chunks(variant):
     _assert_matches(variant, fn(torch.from_numpy(feats), torch.from_numpy(pids), h, w).numpy(), want)
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 16, 64, 4096])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 5, 16, 64, 4096])
 @pytest.mark.parametrize("variant", ["fused", "onehot"])
 def test_result_does_not_depend_on_the_chunk(variant, chunk):
     plain = {"fused": bev_scatter.bev_scatter_max_sorted_fused_plain,
@@ -121,6 +124,146 @@ def test_result_does_not_depend_on_the_chunk(variant, chunk):
     tf, tp = torch.from_numpy(feats), torch.from_numpy(pids)
     want = bev_scatter.bev_scatter_max_sorted_plain(tf, tp, 8, 8)
     _assert_matches(variant, plain(tf, tp, 8, 8, chunk=chunk).numpy(), want.numpy())
+
+
+# ------------------------------------------- launch numbers of the streaming kernels
+
+CSRC = Path(bev_scatter.__file__).resolve().parent / "csrc"
+
+
+def _constant(source, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", (CSRC / source).read_text()).group(1))
+
+
+def test_plain_chunk_lengths_are_the_kernels():
+    """The plain versions sweep chunks of the length the kernels stage, and
+    the one-hot tile is the M of its matrix instruction."""
+    assert bev_scatter.FUSED_CHUNK == bev_scatter.ONEHOT_CHUNK == _constant("bev_stream.cuh", "kChunk")
+    assert bev_scatter.ONEHOT_TILE_CELLS == _constant("bev_scatter_onehot.cu", "kTileCells")
+
+
+@pytest.mark.parametrize("b,tiles,groups,sms", [(8, 4096, 1, 132), (1, 1, 1, 132), (3, 5, 1, 132),
+                                                (2, 4, 4, 8), (8, 33554432, 1, 132),
+                                                (1, 100000, 96, 1)])
+def test_span_tiles_cover_every_tile_with_about_the_aimed_blocks(b, tiles, groups, sms):
+    span = bev_scatter.span_tiles(b, tiles, groups, sms)
+    assert span >= 1
+    blocks = -(-tiles // span) * b * groups
+    aim = bev_scatter._STREAM_BLOCKS_PER_SM * sms
+    assert -(-tiles // span) * span >= tiles
+    # where a block has more than one tile and less than a sample, the launch
+    # has the aimed number of blocks, or down to half of it (less what
+    # rounding a sample's spans up costs)
+    if 1 < span < tiles:
+        assert aim // 2 - b * groups <= blocks <= aim
+    else:
+        assert span == 1 or blocks == b * groups
+
+
+@pytest.mark.parametrize("c", [1, 7, 24, 32, 33, 64, 128, 129, 200, 1700])
+def test_stream_plans(c):
+    """The launch numbers come in the order of the C signatures, every
+    channel has a block, and a tile fits the block's resources."""
+    hw, sms = 512 * 512, 132
+    fused = bev_scatter.fused_plan(8, c, hw, sms)
+    assert list(fused) == ["tile_cells", "span_tiles", "group"]
+    assert 1 <= fused["group"] <= 128 and fused["group"] == min(c, 128)
+    assert fused["tile_cells"] >= 1
+    assert fused["tile_cells"] * fused["group"] * 4 <= max(16384, 4 * fused["group"])
+    onehot = bev_scatter.onehot_plan(8, c, hw, sms)
+    assert list(onehot) == ["span_tiles", "group"]
+    assert onehot["group"] == (32 if c <= 32 else 64)
+    for plan, tile_cells in ((fused, fused["tile_cells"]), (onehot, bev_scatter.ONEHOT_TILE_CELLS)):
+        tiles = -(-hw // tile_cells)
+        groups = -(-c // plan["group"])
+        assert plan["span_tiles"] == bev_scatter.span_tiles(8, tiles, groups, sms)
+        assert groups * plan["group"] >= c
+
+
+def _streaming_walk(feats, pids, hw, tile_cells, span, chunk=16):
+    """The streaming kernels' control flow for one sample, in numpy: a block
+    a span of tiles, one search for its first row, windows of ``chunk`` rows
+    from there, a tile's end read from the window's pids, a chunk what a
+    window holds of one tile, chunk-local tails folded by max, runs of empty
+    tiles written as zeros. Returns the grid, how often each cell was
+    written and the number of chunks."""
+    n, c = feats.shape
+    out = np.full((hw, c), np.nan, np.float32)
+    writes = np.zeros(hw, int)
+    chunks = 0
+    tiles = -(-hw // tile_cells)
+    for block in range(-(-tiles // span)):
+        tile, tile_end = block * span, min(tiles, (block + 1) * span)
+        row0 = int(np.searchsorted(pids, tile * tile_cells, "left"))
+        w, j0, dirty, buf = -1, chunk, False, np.zeros((tile_cells, c), np.float32)
+        while tile < tile_end:
+            if j0 == chunk:
+                w, j0 = w + 1, 0
+                r = row0 + w * chunk
+                m = max(0, min(chunk, n - r))
+                spid = np.full(chunk, hw)
+                spid[:m] = pids[r:r + m]
+                sval = np.zeros((chunk, c), np.float32)
+                sval[:m] = feats[r:r + m]
+            cell0, cell_end = tile * tile_cells, min((tile + 1) * tile_cells, hw)
+            if not dirty and spid[j0] >= cell_end:
+                nxt = min(tile_end, max(tile + 1, spid[j0] // tile_cells))
+                upto = min(nxt * tile_cells, hw)
+                out[cell0:upto] = 0
+                writes[cell0:upto] += 1
+                tile = nxt
+                continue
+            j1 = j0 + int((spid[j0:] < cell_end).sum())
+            if j1 > j0:
+                chunks += 1
+                run = np.zeros(c, np.float32)
+                for j in range(j0, j1):
+                    run = np.maximum(run, sval[j]) if j > j0 and spid[j] == spid[j - 1] else sval[j]
+                    if j == j1 - 1 or spid[j + 1] != spid[j]:
+                        buf[spid[j] - cell0] = np.maximum(buf[spid[j] - cell0], run)
+                dirty, j0 = True, j1
+                if j0 == chunk:
+                    continue
+            out[cell0:cell_end] = buf[:cell_end - cell0]
+            writes[cell0:cell_end] += 1
+            buf[:] = 0
+            dirty = False
+            tile += 1
+    return out, writes, chunks
+
+
+@pytest.mark.parametrize("name", CASES + ["long_runs"])
+@pytest.mark.parametrize("tile_cells,span", [(64, 1), (64, 5), (7, 3), (1, 1000)])
+def test_streaming_walk_writes_every_cell_once(name, tile_cells, span):
+    """The walk the fused and one-hot kernels do over spans, windows and
+    tiles gives the default function's grid and writes each cell once, so
+    their output may be ``torch.empty``."""
+    h, w = 24, 23
+    feats, pids = _case(name, np.random.default_rng(11), (2, 700, 3, h, w))
+    want = bev_scatter.bev_scatter_max_sorted_plain(torch.from_numpy(feats), torch.from_numpy(pids),
+                                                    h, w).numpy().reshape(2, h * w, 3)
+    for i in range(2):
+        got, writes, _ = _streaming_walk(feats[i], pids[i], h * w, tile_cells, span)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(got, want[i])
+
+
+@pytest.mark.parametrize("name", CASES + ["long_runs"])
+@pytest.mark.parametrize("tile_cells,span", [(64, 1), (64, 5), (7, 3), (1, 1000)])
+def test_smoke_script_counts_the_walks_chunks(name, tile_cells, span):
+    """chip_smoke.py's operation count for the one-hot kernel's bound has one
+    product for every chunk of the walk, a tile that straddles a window's
+    border counted twice."""
+    import chip_smoke
+
+    h, w, cp = 24, 23, 32
+    feats, pids = _case(name, np.random.default_rng(12), (2, 700, 3, h, w))
+    chunks = sum(_streaming_walk(feats[i], pids[i], h * w, tile_cells, span)[2] for i in range(2))
+    ops = chip_smoke.onehot_product_ops(torch.from_numpy(pids), h * w, tile_cells, 16, span, cp)
+    assert ops == chunks * 2 * tile_cells * 16 * 3 * cp
+    by_tile = sum(-(-int(k) // 16) for i in range(2)
+                  for k in np.bincount(pids[i][pids[i] < h * w] // tile_cells))
+    assert chunks >= by_tile
 
 
 def test_tails_plain_stores_only_flagged_rows():

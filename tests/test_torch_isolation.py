@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no flax/optax/orbax, nothing of pcp_tpu.
 
 Checked two ways: a fresh interpreter imports the package and builds the ego
-model on the CPU, and a scan of every import statement in the package and in
-chip_smoke.py. The entry point defaults to the GPU and raises without one.
+model on the CPU, and a scan of every import statement in the package, in
+the measurement scripts under tools_torch/ and in chip_smoke.py. The entry point defaults to the GPU and raises without one.
 """
 import ast
 import subprocess
@@ -15,6 +15,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pcp_tpu")
 SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "pcp_tpu_torch").rglob("*.py"))
+SOURCES += sorted(str(p.relative_to(REPO)) for p in (REPO / "tools_torch").glob("*.py"))
 SOURCES.append("chip_smoke.py")
 
 
