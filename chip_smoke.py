@@ -30,13 +30,31 @@ exits non-zero:
    ``torch.use_deterministic_algorithms``, the timed ones do not). b1 on the card against b1
    on the CPU for unset and fused; then the forward's and the stages' times
    (20 iterations for the default setting, 10 for the others).
+5. train: the same model trained on the card at b4 x 32768 points
+   (``BATCH_SIZE_PER_GPU``; ``MAX_POINTS_PER_SAMPLE`` as the synthetic-data
+   train recipe sets it), synthetic car boxes
+   (about 30 a cloud, on pillar centres of the cloud), initial weights from
+   ``create_train_state`` seeded by ``--seed``, the config's adam_onecycle.
+   It overfits one batch in up to 50 steps (every loss finite, the last
+   under 0.7 of the first), each step launching ``bev_scatter_max`` once and
+   no other kernel; one step under each other ``PRE_REDUCE`` setting
+   launches its own kernel once, and under deterministic algorithms its
+   parameter gradients equal the default setting's (exactly for the tails
+   and fused kernels, within a stated tolerance for the one-hot kernel).
+   One b1 step on the card against the same step on the CPU: loss, every
+   gradient after the clip, running statistics, the largest error of each
+   module group beside its tolerance. Then the b4 step time (host clock,
+   median of 10 after 3 warm-ups), samples/s, the split into forward+loss,
+   backward and optimizer (CUDA events) and the peak memory.
 
-The last three lines are the kernels' record (JSON), the card as nvidia-smi
-names it, and ``{"ok": true, "device": ...}``. Without a CUDA device the
-script exits 1 and prints no result.
+The last three lines are the kernels' record (JSON, with the train phase's
+numbers under ``"train"``), the card as nvidia-smi names it, and
+``{"ok": true, "device": ...}``. Without a CUDA device the script exits 1 and
+prints no result.
 """
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -471,7 +489,7 @@ def phase_slice(seed):
         iters = 20 if pre_reduce is None else 10
         with torch.inference_mode():
             ms = cuda_ms(lambda: model(batch), warmup=3, iters=iters)
-            stages = stage_ms(model, batch)
+            stages = stage_ms(serving_stages(model), batch)
         log("slice", f"PRE_REDUCE {pre_reduce}: forward b{B} x {N} points, full width, seeded "
                      f"weights, TF32 off: median {ms:.6f} ms over {iters} iterations, "
                      f"{B / ms * 1e3:.3f} clouds/s")
@@ -492,16 +510,20 @@ def phase_slice(seed):
     return launches
 
 
-def stage_ms(model, batch, iters=10):
-    """The forward cut at module boundaries, each stage timed with CUDA events
-    recorded between them; median ms per stage."""
+def serving_stages(model):
+    """The eval forward cut at module boundaries: (name, fn) in order."""
     head = model.dense_head
-    stages = [("vfe", model.vfe), ("map_to_bev", model.map_to_bev),
-              ("backbone_2d", model.backbone_2d),
-              ("head_convs", lambda d: dict(d, head_preds=[h(head.shared_conv(
-                  d["spatial_features_2d"])) for h in head.heads_list])),
-              ("decode_nms", lambda d: dict(d, final_box_dicts=head.generate_predicted_boxes(
-                  d["head_preds"])))]
+    return [("vfe", model.vfe), ("map_to_bev", model.map_to_bev),
+            ("backbone_2d", model.backbone_2d),
+            ("head_convs", lambda d: dict(d, head_preds=[h(head.shared_conv(
+                d["spatial_features_2d"])) for h in head.heads_list])),
+            ("decode_nms", lambda d: dict(d, final_box_dicts=head.generate_predicted_boxes(
+                d["head_preds"])))]
+
+
+def stage_ms(stages, batch, iters=10):
+    """``stages`` run in turn on ``batch``, each timed with CUDA events
+    recorded between them; median ms per stage."""
     times = {name: [] for name, _ in stages}
     for it in range(iters + 2):  # two warm-up passes
         events = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
@@ -517,6 +539,285 @@ def stage_ms(model, batch, iters=10):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+# --------------------------------------------------------------- 5. train
+
+TRAIN_STEPS = 50  # the overfit run: up to this many steps on one batch
+# card against CPU, one b1 step: loss rtol; a gradient leaf's largest error
+# over its largest |g|; conv biases in front of a BN (gradient 0 in exact
+# arithmetic) against the model's largest |g|; running statistics. At this
+# depth and these initial weights the training-mode network amplifies
+# rounding: the CPU's own step differs by up to 13% of a leaf's largest |g|
+# between two thread counts, which only reorder its sums. So each quantity
+# is held to the larger of its tolerance here and SPREAD_FACTOR times that
+# spread, measured in the same run.
+LOSS_RTOL, GRAD_RTOL, GRAD_ZERO_ATOL, STATS_ATOL = 1e-5, 1e-4, 1e-6, 1e-5
+SPREAD_FACTOR = 3.0
+# one-hot setting against the default, same step: its BEV rounds by up to
+# 2^-23 relative, which the backbone carries into every gradient
+ONEHOT_GRAD_RTOL = 1e-3
+
+
+def train_batch(rng, b, n, info, boxes_per_cloud=30):
+    """``realistic_points`` and car boxes (class 1, 4.2 x 1.8 x 1.6, random
+    yaw) centred on pillar centres of the cloud, ``boxes_per_cloud`` a cloud,
+    padded to 500 rows as the target assigner takes them."""
+    pts = realistic_points(rng, b, n, info.num_point_features)
+    gt = np.zeros((b, 500, 8), np.float32)
+    vx, vy = info.voxel_size[0], info.voxel_size[1]
+    for i in range(b):
+        rows = rng.choice(n, size=boxes_per_cloud, replace=False)
+        cx = np.floor((pts[i, rows, 0] - info.point_cloud_range[0]) / vx)
+        cy = np.floor((pts[i, rows, 1] - info.point_cloud_range[1]) / vy)
+        gt[i, :boxes_per_cloud, 0] = info.point_cloud_range[0] + (cx + 0.5) * vx
+        gt[i, :boxes_per_cloud, 1] = info.point_cloud_range[1] + (cy + 0.5) * vy
+        gt[i, :boxes_per_cloud, 2] = -1.0
+        gt[i, :boxes_per_cloud, 3:6] = [4.2, 1.8, 1.6]
+        gt[i, :boxes_per_cloud, 6] = rng.uniform(-np.pi, np.pi, boxes_per_cloud)
+        gt[i, :boxes_per_cloud, 7] = 1
+    return {"points": torch.from_numpy(pts), "points_mask": torch.ones((b, n), dtype=torch.bool),
+            "gt_boxes": torch.from_numpy(gt)}
+
+
+def _on(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _one_step(model, state_dict, cfg, batch):
+    """Load ``state_dict``, take one train step with a fresh optimizer.
+    Returns (loss, {name: gradient after the clip}, state dict after)."""
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import make_train_step
+
+    model.load_state_dict(state_dict, strict=True)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
+                                   total_epochs=1)
+    loss, _ = make_train_step(model, optimizer)(batch)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return loss.item(), grads, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def biases_before_bn(model):
+    """Conv biases that a BN follows: their gradient is 0 in exact arithmetic."""
+    from torch import nn
+
+    names = set()
+    for prefix, m in model.named_modules():
+        if isinstance(m, nn.Sequential):
+            kids = list(m.named_children())
+            for (name, a), (_, b) in zip(kids, kids[1:]):
+                if isinstance(a, nn.Conv2d) and a.bias is not None and isinstance(b, nn.BatchNorm2d):
+                    names.add(f"{prefix}.{name}.bias")
+    return names
+
+
+def grad_errors(got, want, zero_names):
+    """Per module group (vfe, backbone_2d, dense_head): the largest error of
+    a leaf over that leaf's largest |g| (``rel``, with the leaf's name), and,
+    for the biases in front of a BN, their largest |g| on either side over
+    the model's largest |g| (``zero_grad``)."""
+    top = max(w.abs().max().item() for w in want.values())
+    out = {}
+    for name, w in want.items():
+        group = name.split(".")[0]
+        g = got[name].to(w.device)
+        if name in zero_names:
+            key, err = "zero_grad", max(g.abs().max().item(), w.abs().max().item()) / top
+        else:
+            key, err = "rel", (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        entry = out.setdefault(group, {})
+        if err >= entry.get(key, (-1.0, ""))[0]:
+            entry[key] = (err, name)
+    return out
+
+
+def phase_train(seed):
+    """Training of the full-width ego model on the card. Returns (launches
+    of each kernel per train step under its setting, the train record)."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg, info, model = build(CFG_EGO, device="cuda")
+    # BATCH_SIZE_PER_GPU of the config; MAX_POINTS_PER_SAMPLE 32768, as the
+    # synthetic-data train recipe sets it (the config leaves it unset)
+    b, n = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), N
+    host_batch = train_batch(np.random.default_rng(seed + 2), b, n, info)
+    batch = _on(host_batch, "cuda")
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
+                                   total_epochs=1)
+    state = create_train_state(model, optimizer, seed)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    log("train", f"ego model on the card: {n_params} parameters in "
+                 f"{len(list(model.parameters()))} tensors; b{b} x {n} points, "
+                 f"{int(host_batch['gt_boxes'][..., 7].sum())} gt boxes; adam_onecycle "
+                 f"over {TRAIN_STEPS} steps, LR {cfg.OPTIMIZATION.LR}, GRAD_NORM_CLIP "
+                 f"{cfg.OPTIMIZATION.GRAD_NORM_CLIP}")
+
+    # overfit one batch; every launch of the run counted
+    step = make_train_step(model, optimizer)
+    bev_scatter.reset_launches()
+    losses = [step(batch)[0] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    counts = dict(bev_scatter.launches)
+    losses = [v.item() for v in losses]
+    log("train", "loss curve: " + " ".join(f"{v:.6f}" for v in losses))
+    log("train", f"{TRAIN_STEPS} steps, kernel launches {counts}; step count {state.step}")
+    if counts != {k: TRAIN_STEPS * int(k == "bev_scatter_max") for k in counts}:
+        raise AssertionError(f"expected {TRAIN_STEPS} launches of bev_scatter_max and none of the "
+                             f"others, got {counts}")
+    if not np.isfinite(losses).all() or not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"overfit: last loss {losses[-1]} not under 0.7 x first {losses[0]}")
+    launches = {"bev_scatter_max": counts["bev_scatter_max"] // TRAIN_STEPS}
+
+    # one deterministic step under each PRE_REDUCE setting from the initial
+    # weights and running statistics
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    zero_names = biases_before_bn(model)
+    ref = None
+    for pre_reduce, kernel in SETTINGS:
+        setting_model = model if pre_reduce is None else build(CFG_EGO, "cuda", pre_reduce)[2]
+        bev_scatter.reset_launches()
+        loss, grads, _ = _one_step(setting_model, initial, cfg, batch)
+        torch.cuda.synchronize()
+        counts = dict(bev_scatter.launches)
+        if counts != {k: int(k == kernel) for k in counts}:
+            raise AssertionError(f"PRE_REDUCE {pre_reduce}: expected one launch of {kernel}, "
+                                 f"got {counts}")
+        launches[kernel] = counts[kernel]
+        if ref is None:
+            ref = (loss, grads)
+            log("train", f"PRE_REDUCE {pre_reduce}: one deterministic step, loss {loss}, "
+                         f"launches {counts}")
+            continue
+        errs = grad_errors(grads, ref[1], set())
+        worst = max(e["rel"][0] for e in errs.values())
+        if kernel == "bev_scatter_onehot":
+            ok, rule = worst <= ONEHOT_GRAD_RTOL, f"<= {ONEHOT_GRAD_RTOL} of each leaf's largest |g|"
+        else:
+            ok, rule = worst == 0.0 and loss == ref[0], "exact equality"
+        log("train", f"PRE_REDUCE {pre_reduce}: loss {loss} (default {ref[0]}), launches {counts}; "
+                     f"gradients vs the default setting's, largest error over the leaf's largest "
+                     f"|g| by group {errs} ({rule} required)")
+        if not ok:
+            raise AssertionError(f"PRE_REDUCE {pre_reduce}: gradients differ from the default's")
+        del setting_model
+
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+    # time the b4 step: host clock around steps that end in a synchronize;
+    # the split by CUDA events between forward+loss, backward and optimizer
+    model.load_state_dict(initial, strict=True)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
+                                   total_epochs=1)
+    model.train()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, split = [], {"forward_loss": [], "backward": [], "optimizer": []}
+    for it in range(13):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(batch)
+        events[1].record()
+        out["loss"].backward()
+        events[2].record()
+        optimizer.step()
+        events[3].record()
+        torch.cuda.synchronize()
+        if it >= 3:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for i, key in enumerate(split):
+                split[key].append(events[i].elapsed_time(events[i + 1]))
+    peak = torch.cuda.max_memory_allocated()
+    # the training forward cut at module boundaries (targets in dense_head)
+    head = model.dense_head
+    stages = stage_ms([("vfe", model.vfe), ("map_to_bev", model.map_to_bev),
+                       ("backbone_2d", model.backbone_2d), ("dense_head", head),
+                       ("loss", lambda d: dict(d, loss=head.get_loss(d["head_preds"],
+                                                                     d["head_targets"])[0]))],
+                      batch)
+    log("train", f"b{b} training forward by stage (median ms of 10, CUDA events between "
+                 "stages): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+    # the same backbone on the same BEV in eval mode, as the serving forward
+    # runs it, beside the training-mode time above
+    model.eval()
+    with torch.inference_mode():
+        bev = model.map_to_bev(model.vfe(batch))
+        eval_backbone_ms = cuda_ms(lambda: model.backbone_2d(bev), iters=10)
+    model.train()
+    log("train", f"b{b} backbone_2d in eval mode under inference_mode, same BEV: "
+                 f"{eval_backbone_ms:.6f} ms (median of 10, CUDA events)")
+    record = {"batch": b, "points": n, "step_ms": statistics.median(step_ms),
+              "samples_per_s": b / statistics.median(step_ms) * 1e3,
+              **{f"{k}_ms": statistics.median(v) for k, v in split.items()},
+              "peak_bytes": peak, "forward_stages_ms": stages,
+              "eval_backbone_ms": eval_backbone_ms,
+              "first_loss": losses[0], "last_loss": losses[-1],
+              "steps": TRAIN_STEPS}
+    log("train", f"b{b} x {n} train step, full width, TF32 off: median {record['step_ms']:.6f} ms "
+                 f"over 10 steps after 3 warm-ups (host clock, synchronized), "
+                 f"{record['samples_per_s']:.3f} samples/s; split (median ms, CUDA events): "
+                 + ", ".join(f"{k} {statistics.median(v):.6f}" for k, v in split.items())
+                 + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB)")
+
+    # b1, card against CPU, from the same weights and cloud; the CPU's step
+    # twice, with all its threads and with half, for its own spread
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    _, _, cpu_model = build(CFG_EGO, device="cpu")
+    one = {k: v[:1] for k, v in host_batch.items()}
+    cpu_initial = {k: v.cpu() for k, v in initial.items()}
+    threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    cpu = _one_step(cpu_model, cpu_initial, cfg, one)
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(max(1, threads // 2))
+    cpu_half = _one_step(cpu_model, cpu_initial, cfg, one)
+    torch.set_num_threads(threads)
+    gpu = _one_step(model, initial, cfg, _on(one, "cuda"))
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+    def errors(got):
+        """Loss rel, gradient errors by group, running statistics by group."""
+        stats = {}
+        for name, v in cpu[2].items():
+            if ".running_" in name:
+                group = name.split(".")[0]
+                stats[group] = max(stats.get(group, 0.0), (got[2][name].cpu() - v).abs().max().item())
+        return abs(got[0] - cpu[0]) / abs(cpu[0]), grad_errors(got[1], cpu[1], zero_names), stats
+
+    loss_rel, errs, stats_err = errors(gpu)
+    loss_spread, spread, stats_spread = errors(cpu_half)
+    log("train", f"b1 CPU step with {threads} threads ({cpu_s:.1f} s) against {max(1, threads // 2)}: "
+                 f"loss rel {loss_spread:.3e}, gradients by group {spread}, running statistics "
+                 f"{stats_spread}")
+    limits = {"loss": max(LOSS_RTOL, SPREAD_FACTOR * loss_spread)}
+    for group, d in errs.items():
+        for key, (err, _) in d.items():
+            base = GRAD_ZERO_ATOL if key == "zero_grad" else GRAD_RTOL
+            limits[f"{group} {key}"] = (err, max(base, SPREAD_FACTOR * spread[group][key][0]))
+        limits[f"{group} running statistics"] = (
+            stats_err[group], max(STATS_ATOL, SPREAD_FACTOR * stats_spread[group]))
+    limits["loss"] = (loss_rel, limits["loss"])
+    log("train", f"b1 card vs CPU: loss {gpu[0]} vs {cpu[0]}; gradients after the clip, by "
+                 f"group, largest error over the leaf's largest |g| (biases in front of a BN: "
+                 f"over the model's largest |g|): {errs}; running statistics max abs err by "
+                 f"group {stats_err}; each against its limit, max(tolerance, {SPREAD_FACTOR} x "
+                 f"the CPU's spread): " + ", ".join(f"{k} {e:.3e} <= {lim:.3e}"
+                                                   for k, (e, lim) in limits.items()))
+    bad = [f"{k} {e} > {lim}" for k, (e, lim) in limits.items() if e > lim]
+    if bad:
+        raise AssertionError("b1 card vs CPU outside tolerance: " + "; ".join(bad))
+
+    return launches, record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -525,13 +826,18 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
 
+    # cuBLAS's deterministic mode (phase 5) needs this before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     card = phase_device()
     phase_build()
     records = phase_kernels(args.seed)
     for kernel, count in phase_slice(args.seed).items():
         records[kernel]["launches"] = count
+    train_launches, train = phase_train(args.seed)
+    for kernel, record in records.items():
+        record["launches_per_train_step"] = train_launches.get(kernel)
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
-    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"kernels": list(records.values()), "train": train}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

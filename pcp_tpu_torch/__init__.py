@@ -1,5 +1,6 @@
 """pcp_tpu_torch: the PyTorch / CUDA port of pcp_tpu for NVIDIA Hopper GPUs.
 
-The serving forward of the lately-fusion ego CenterPoint; see ``entry.build``.
+The lately-fusion ego CenterPoint: its serving forward (``entry.build``) and
+its training (``train/``).
 Importing the package builds nothing and needs no GPU.
 """

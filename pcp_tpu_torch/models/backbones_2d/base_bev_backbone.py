@@ -6,11 +6,14 @@ match: ``blocks.{l}`` is ZeroPad2d(1), the level's first (strided) 3x3 conv,
 BN, ReLU, then [3x3 conv, BN, ReLU] per extra layer, so conv k sits at index
 3k+1 and its BN at 3k+2; ``deblocks.{l}`` is a transposed conv (upsample
 stride >= 1) or a strided conv (stride < 1), BN, ReLU. Every BN has eps 1e-3
-(flax momentum 0.99 is torch momentum 0.01). Tensors are (B, C, H, W).
+and flax's convention (``norm.BatchNorm2d``; flax momentum 0.99 is torch
+momentum 0.01). Tensors are (B, C, H, W).
 """
 import numpy as np
 import torch
 from torch import nn
+
+from ..model_utils.norm import BatchNorm2d
 
 
 # serving options of the JAX package that the port does not have yet
@@ -18,7 +21,7 @@ NOT_PORTED = {"FOLD_BN": "ROADMAP A12", "W_PACK": "ROADMAP A12", "BF16": "ROADMA
 
 
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=1e-3, momentum=0.01)
+    return BatchNorm2d(c, eps=1e-3, momentum=0.01)
 
 
 class BaseBEVBackbone(nn.Module):

@@ -1,19 +1,22 @@
-"""CenterPoint detector, eval forward.
+"""CenterPoint detector.
 
 Counterpart of ``pcp_tpu/models/detectors/centerpoint.py``: the sub-modules
 run in order on a batch dict (``points`` (B, N, C) float32, ``points_mask``
-(B, N) bool) and the result carries fixed-shape ``final_box_dicts``. Training
-is not ported yet (ROADMAP A6).
+(B, N) bool; in training also ``gt_boxes`` (B, M, 8), zero rows for padding).
+In eval mode the result carries fixed-shape ``final_box_dicts``; in training
+mode (``model.train()``) it carries ``loss``, the CenterHead's loss, and
+``tb_dict``. The corrector and distillation losses of the JAX package come
+with their modules (ROADMAP A7, A9), which ``build_network`` refuses until then.
 """
 from .detector_template import Detector3DTemplate
 
 
 class CenterPoint(Detector3DTemplate):
-    def forward(self, batch, train=False):
-        if train or self.training:
-            raise NotImplementedError("training is not ported yet (ROADMAP A6); "
-                                      "call model.eval() and forward(batch)")
+    def forward(self, batch):
         out = dict(batch)
         for name in self.module_names:
             out = getattr(self, name)(out)
+        if self.training:
+            out["loss"], out["tb_dict"] = self.dense_head.get_loss(out["head_preds"],
+                                                                   out["head_targets"])
         return out

@@ -1,4 +1,4 @@
-"""Config-driven detector builder, serving slice.
+"""Config-driven construction of the detector.
 
 Counterpart of ``pcp_tpu/models/detectors/detector_template.py``. The MODEL
 config names the sub-modules; each is registered under its pcdet name

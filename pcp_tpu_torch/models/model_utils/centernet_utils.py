@@ -1,12 +1,70 @@
-"""CenterNet decode helpers (serving path).
+"""CenterNet heatmap helpers: target splatting and decode.
 
-Counterpart of ``exact_topk``, ``topk_heatmap`` and
-``decode_bbox_from_heatmap`` in ``pcp_tpu/models/model_utils/centernet_utils.py``.
-Inputs keep the JAX layout (B, H, W, C). Top-k is a stable descending sort,
-so equal scores go to the lower index, as in the JAX package. Outputs have
-fixed shapes with a ``valid`` mask instead of being filtered.
+Counterpart of ``gaussian_radius``, ``splat_gaussians``, ``exact_topk``,
+``topk_heatmap`` and ``decode_bbox_from_heatmap`` in
+``pcp_tpu/models/model_utils/centernet_utils.py``. Heatmaps keep the JAX
+layout (B, H, W, C). Top-k is a stable descending sort, so equal scores go to
+the lower index, as in the JAX package. Outputs have fixed shapes with a
+``valid`` mask instead of being filtered.
 """
 import torch
+
+
+def gaussian_radius(height, width, min_overlap=0.5):
+    """Smallest gaussian radius that keeps IoU >= ``min_overlap`` (the
+    CornerNet recipe), elementwise, in the JAX package's operation order.
+    The divisor is a tensor: CUDA divides by a Python number as a multiply
+    by its reciprocal, which can move a radius across an integer."""
+    b1 = height + width
+    c1 = width * height * (1 - min_overlap) / height.new_tensor(1 + min_overlap)
+    r1 = (b1 + torch.sqrt(torch.clamp(b1 ** 2 - 4 * c1, min=0.0))) / 2
+
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    r2 = (b2 + torch.sqrt(torch.clamp(b2 ** 2 - 4 * 4.0 * c2, min=0.0))) / 2
+
+    a3 = 4.0 * min_overlap
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    r3 = (b3 + torch.sqrt(torch.clamp(b3 ** 2 - 4 * a3 * c3, min=0.0))) / 2
+    return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+def splat_gaussians(centers, radii, class_ids, valid, num_classes, size_xy, patch_radius=10):
+    """Draw each object's gaussian into its class heatmap, combining by max.
+
+    Args:
+        centers: (B, M, 2) float (x, y) feature-map coordinates, >= 0.
+        radii: (B, M) int radii, already at least the minimum radius; they
+            are clipped to ``patch_radius``.
+        class_ids: (B, M) int in [0, num_classes).
+        valid: (B, M) bool.
+        size_xy: (W, H).
+    Returns:
+        (B, H, W, num_classes) float32, 0 where no gaussian reaches; cells
+        outside the map are dropped.
+    """
+    w, h = size_xy
+    b, m = radii.shape
+    side = 2 * patch_radius + 1
+    dev = centers.device
+    offs = torch.arange(side, device=dev) - patch_radius
+    du, dv = offs[None, :].expand(side, side), offs[:, None].expand(side, side)
+
+    center_int = centers.to(torch.int32)  # floor for non-negative coordinates
+    r = torch.clamp(radii, max=patch_radius)[..., None, None]
+    cx = center_int[..., 0, None, None] + du
+    cy = center_int[..., 1, None, None] + dv
+    sigma = (2 * r.to(torch.float32) + 1) / 6.0
+    val = torch.exp(-(du.to(torch.float32) ** 2 + dv.to(torch.float32) ** 2) / (2 * sigma ** 2))
+    ok = (valid[..., None, None] & (du.abs() <= r) & (dv.abs() <= r)
+          & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h))
+    size = h * w * num_classes
+    idx = torch.where(ok, (cy * w + cx) * num_classes + class_ids[..., None, None].to(cx.dtype), size)
+    hm = torch.zeros((b, size + 1), dtype=torch.float32, device=dev)  # the last is a sentinel
+    hm.scatter_reduce_(1, idx.reshape(b, -1).long(), torch.where(ok, val, 0.0).reshape(b, -1),
+                       reduce="amax", include_self=True)
+    return hm[:, :size].reshape(b, h, w, num_classes)
 
 
 def exact_topk(x, k):

@@ -9,6 +9,9 @@ by ``PRE_REDUCE`` as in the JAX package: unset -> ``bev_scatter_max_sorted``,
 ``True`` -> ``..._prereduced``, ``"fused"`` -> ``..._fused``, ``"onehot"`` ->
 ``..._onehot`` (strings in any case). Features are [raw | f_cluster | f_center]
 (+ distance); a PFN layer is Linear (no bias) -> BatchNorm(eps 1e-3) -> ReLU.
+In training the BN takes its statistics over valid points only, and the
+gradient flows through the segment max and the scatter function's
+tie-splitting backward.
 """
 import torch
 from torch import nn
@@ -28,11 +31,12 @@ class PFNLayer(nn.Module):
         self.linear = nn.Linear(in_channels, out, bias=not use_norm)
         self.norm = MaskedBatchNorm(out, eps=1e-3, momentum=0.01) if use_norm else None
 
-    def transform(self, x):
-        """Linear -> BN -> ReLU on (M, C_in) rows."""
+    def transform(self, x, valid):
+        """Linear -> BN -> ReLU on (M, C_in) rows; in training the BN takes
+        its statistics from the rows where ``valid`` (M,) is set."""
         x = self.linear(x)
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x, valid)
         return torch.relu(x)
 
 
@@ -114,8 +118,9 @@ class DynamicPillarVFE(nn.Module):
             feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
         features = torch.cat(feats, -1)
 
+        flat_valid = valid_s.reshape(b * n)
         for pfn in self.pfn_layers:
-            features = pfn.transform(features.reshape(b * n, -1)).reshape(b, n, -1)
+            features = pfn.transform(features.reshape(b * n, -1), flat_valid).reshape(b, n, -1)
             if not pfn.last_layer:
                 back = segment_total_to_points(
                     torch.where(valid_s[..., None], features, 0.0), pid_s, "amax")

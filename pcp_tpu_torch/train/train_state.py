@@ -1,0 +1,103 @@
+"""Train state and step factories: counterpart of ``pcp_tpu/train/train_state.py``.
+
+The JAX package's ``TrainState`` holds params, batch stats, optimizer state
+and step as a pytree; here the model holds the parameters and running
+statistics, the optimizer its state and the step count (``count`` of its
+param group), and :class:`TrainState` bundles the two. A train step is:
+zero the gradients, forward in training mode (loss and running-statistics
+update), backward, then the optimizer step, which clips by global norm,
+updates and counts the step.
+
+    cfg, info, model = build(CFG_EGO, device="cuda")
+    optimizer, lr_fn = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch, epochs)
+    state = create_train_state(model, optimizer, seed=0)
+    train_step = make_train_step(model, optimizer)
+    loss, tb_dict = train_step(batch)
+"""
+import dataclasses
+
+import torch
+from torch import nn
+
+from ..models.model_utils.norm import MaskedBatchNorm
+
+# flax's lecun_normal: a normal truncated at +-2 std, scaled back to unit
+# variance by this factor (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+
+    @property
+    def step(self):
+        """Steps taken: the optimizer's count."""
+        return int(self.optimizer.param_groups[0]["count"])
+
+
+def _lecun_normal_(weight, fan_in, generator):
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    w = torch.empty(weight.shape, dtype=weight.dtype)
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+    weight.copy_(w)
+
+
+@torch.no_grad()
+def init_weights(model, seed):
+    """Initial weights as the JAX package's modules draw them: flax's default
+    ``lecun_normal`` (fan-in) for Dense, Conv and ConvTranspose kernels, zero
+    biases except the hm output's -2.19, BN scale 1 and bias 0, running mean
+    0 and variance 1. Drawn in module order on the CPU from a generator
+    seeded by ``seed``, so a seed gives the same weights on every device."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, m in model.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            # flax's fan-in: kernel taps times input channels; a torch
+            # ConvTranspose2d weight is (in, out, kh, kw)
+            fan_in = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.ConvTranspose2d) else w[0].numel()
+            _lecun_normal_(w, fan_in, gen)
+            if m.bias is not None:
+                m.bias.fill_(-2.19 if name.split(".")[-2:-1] == ["hm"] else 0.0)
+        elif isinstance(m, (nn.BatchNorm2d, MaskedBatchNorm)):
+            m.reset_parameters()
+
+
+def create_train_state(model, optimizer, seed):
+    """Initialise ``model``'s weights from ``seed`` (:func:`init_weights`),
+    clear ``optimizer``'s state and count, and put the model in training
+    mode."""
+    init_weights(model, seed)
+    optimizer.state.clear()
+    for group in optimizer.param_groups:
+        group["count"] = 0
+    model.train()
+    return TrainState(model, optimizer)
+
+
+def make_train_step(model, optimizer):
+    """``train_step(batch) -> (loss, tb_dict)``, tensors on the model's
+    device; the host does not wait for the card."""
+
+    def train_step(batch):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(batch)
+        out["loss"].backward()
+        optimizer.step()
+        return out["loss"].detach(), {k: v.detach() for k, v in out["tb_dict"].items()}
+
+    return train_step
+
+
+def make_eval_step(model):
+    """``eval_step(batch) -> final_box_dicts``, in eval mode, no gradients."""
+
+    def eval_step(batch):
+        model.eval()
+        with torch.inference_mode():
+            return model(batch)["final_box_dicts"]
+
+    return eval_step

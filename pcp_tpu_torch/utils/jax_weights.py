@@ -3,7 +3,10 @@
 The inverse of ``pcp_tpu/utils/torch_converter.py::convert_centerpoint_state_dict``
 for the pillar CenterPoint: it takes ``{'params', 'batch_stats'}`` as numpy
 arrays and returns tensors under pcdet's names, ready for
-``load_state_dict(strict=True)``.
+``load_state_dict(strict=True)``. :func:`tensors_from_jax_params` maps any
+tree shaped like ``params`` the same way (gradients, adam_onecycle's ``mu``
+and ``nu``) onto the parameters' names, so training state can be held leaf
+by leaf against the JAX package's.
 
   * Dense kernel (in, out)          -> Linear weight (out, in)
   * Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
@@ -35,6 +38,8 @@ def _deconv(k):
 def _put_bn(sd, prefix, params, stats):
     sd[f"{prefix}.weight"] = _tensor(params["scale"])
     sd[f"{prefix}.bias"] = _tensor(params["bias"])
+    if stats is None:  # a params-shaped tree: no running statistics
+        return
     sd[f"{prefix}.running_mean"] = _tensor(stats["mean"])
     sd[f"{prefix}.running_var"] = _tensor(stats["var"])
     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -50,15 +55,28 @@ def state_dict_from_jax_variables(variables, model_cfg):
     """Map flax ``variables`` of a pillar CenterPoint built from ``model_cfg``
     (the MODEL config) to a pcdet-named state dict of tensors. Sub-modules
     whose key (VFE, BACKBONE_2D, DENSE_HEAD) the config lacks are skipped."""
-    params, stats = variables["params"], variables.get("batch_stats", {})
+    params, stats = variables["params"], variables.get("batch_stats")
     sd = {}
     if "VFE" in model_cfg:
-        _vfe(sd, params["vfe"], stats.get("vfe", {}), model_cfg["VFE"])
+        _vfe(sd, params["vfe"], _sub(stats, "vfe"), model_cfg["VFE"])
     if "BACKBONE_2D" in model_cfg:
-        _backbone(sd, params["backbone_2d"], stats["backbone_2d"], model_cfg["BACKBONE_2D"])
+        _backbone(sd, params["backbone_2d"], _sub(stats, "backbone_2d"), model_cfg["BACKBONE_2D"])
     if "DENSE_HEAD" in model_cfg:
-        _head(sd, params["dense_head"], stats["dense_head"], model_cfg["DENSE_HEAD"])
+        _head(sd, params["dense_head"], _sub(stats, "dense_head"), model_cfg["DENSE_HEAD"])
     return sd
+
+
+def tensors_from_jax_params(tree, model_cfg):
+    """A tree shaped like flax ``params`` (gradients, optimizer moments) as
+    tensors under the names of the parameters they belong to; kernels are
+    transposed and flipped as the weights are."""
+    return state_dict_from_jax_variables({"params": tree}, model_cfg)
+
+
+def _sub(stats, key):
+    """The sub-tree of ``stats`` at ``key``; None all the way down when
+    there are no statistics."""
+    return None if stats is None else stats.get(key, {})
 
 
 def _vfe(sd, vfe_p, vfe_s, vcfg):
@@ -68,7 +86,7 @@ def _vfe(sd, vfe_p, vfe_s, vcfg):
         if "bias" in p["linear"]:
             sd[f"{base}.linear.bias"] = _tensor(p["linear"]["bias"])
         if "norm" in p:
-            _put_bn(sd, f"{base}.norm", p["norm"], vfe_s[f"pfn_{i}"]["norm"])
+            _put_bn(sd, f"{base}.norm", p["norm"], _sub(_sub(vfe_s, f"pfn_{i}"), "norm"))
 
 
 def _backbone(sd, bb_p, bb_s, bcfg):
@@ -76,26 +94,26 @@ def _backbone(sd, bb_p, bb_s, bcfg):
         for k in range(n_layers + 1):
             blk, base = f"block{l}_{k}", f"backbone_2d.blocks.{l}"
             _put_conv(sd, f"{base}.{3 * k + 1}", bb_p[blk]["conv"])
-            _put_bn(sd, f"{base}.{3 * k + 2}", bb_p[blk]["norm"], bb_s[blk]["norm"])
+            _put_bn(sd, f"{base}.{3 * k + 2}", bb_p[blk]["norm"], _sub(_sub(bb_s, blk), "norm"))
         blk, base = f"deblock{l}", f"backbone_2d.deblocks.{l}"
         if blk in bb_p:
             if "deconv" in bb_p[blk]:
                 _put_conv(sd, f"{base}.0", bb_p[blk]["deconv"], _deconv)
             else:
                 _put_conv(sd, f"{base}.0", bb_p[blk]["conv"])
-            _put_bn(sd, f"{base}.1", bb_p[blk]["norm"], bb_s[blk]["norm"])
+            _put_bn(sd, f"{base}.1", bb_p[blk]["norm"], _sub(_sub(bb_s, blk), "norm"))
 
 
 def _head(sd, hd_p, hd_s, hcfg):
     _put_conv(sd, "dense_head.shared_conv.0", hd_p["shared_conv"])
-    _put_bn(sd, "dense_head.shared_conv.1", hd_p["shared_norm"], hd_s["shared_norm"])
+    _put_bn(sd, "dense_head.shared_conv.1", hd_p["shared_norm"], _sub(hd_s, "shared_norm"))
     head_dict = hcfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"]
     for h in range(len(hcfg["CLASS_NAMES_EACH_HEAD"])):
-        hp, hs = hd_p[f"head_{h}"], hd_s.get(f"head_{h}", {})
+        hp, hs = hd_p[f"head_{h}"], _sub(hd_s, f"head_{h}")
         for name in list(head_dict) + ["hm"]:
             num_conv = int(hcfg["NUM_HM_CONV"] if name == "hm" else head_dict[name]["num_conv"])
             base = f"dense_head.heads_list.{h}.{name}"
             for k in range(num_conv - 1):
                 _put_conv(sd, f"{base}.{k}.0", hp[f"{name}_conv{k}"])
-                _put_bn(sd, f"{base}.{k}.1", hp[f"{name}_norm{k}"], hs[f"{name}_norm{k}"])
+                _put_bn(sd, f"{base}.{k}.1", hp[f"{name}_norm{k}"], _sub(hs, f"{name}_norm{k}"))
             _put_conv(sd, f"{base}.{num_conv - 1}", hp[f"{name}_out"])

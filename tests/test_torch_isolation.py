@@ -56,11 +56,16 @@ def test_entry_defaults_to_gpu_and_raises_without_one():
         build()
 
 
-def test_training_raises():
-    from pcp_tpu_torch.entry import build
+def test_iou_head_branch_raises_naming_a11():
+    """The head's ``iou`` branch (and its calibration target) is not ported;
+    ``build_network`` says so rather than training without it."""
+    from pcp_tpu_torch.entry import CFG_EGO
+    from pcp_tpu_torch.config import CfgDict, cfg_from_yaml_file
+    from pcp_tpu_torch.models import DatasetInfo, build_network
 
-    _, _, model = build(device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        model({}, train=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        model.train()({})
+    cfg = cfg_from_yaml_file(REPO / CFG_EGO, CfgDict())
+    cfg.MODEL.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_DICT["iou"] = {"out_channels": 1, "num_conv": 2}
+    cfg.MODEL.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_ORDER.append("iou")
+    info = DatasetInfo.from_data_cfg(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
+    with pytest.raises(NotImplementedError, match="A11"):
+        build_network(cfg.MODEL, num_class=1, dataset_info=info, device="cpu")

@@ -145,8 +145,22 @@ def test_pre_reduce_equals_default_path(vfe_pair, pre_reduce_pairs, value):
         np.testing.assert_array_equal(got, want)
 
 
-def test_pre_reduce_and_training_raise():
-    vfe = DynamicPillarVFE(dict(VFE_CFG, PRE_REDUCE="fused"), **GEOM).train()
-    pts, mask = _points("plain", np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="A6"):
-        vfe({"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)})
+def test_pre_reduce_and_training_raise(vfe_pair):
+    """Training no longer raises: under ``PRE_REDUCE: fused`` the VFE in
+    training mode (masked batch statistics, padding and out-of-range points)
+    gives the JAX VFE's pillar features and running statistics (rtol 1e-5)."""
+    jvfe, jvars, tvfe = vfe_pair
+    pts, mask = _points("padding_and_out_of_range", np.random.default_rng(0))
+    batch = {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask)}
+    want, upd = JaxVFE(model_cfg=CfgDict(dict(VFE_CFG, PRE_REDUCE="fused")), **GEOM).apply(
+        jvars, batch, train=True, mutable=["batch_stats"])
+    vfe = DynamicPillarVFE(dict(VFE_CFG, PRE_REDUCE="fused"), **GEOM)
+    vfe.load_state_dict(tvfe.state_dict())
+    got = vfe.train()({"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)})
+    np.testing.assert_allclose(got["pillar_features"].detach().numpy(),
+                               np.asarray(want["pillar_features"]), atol=2e-4, rtol=1e-4)
+    for i in range(2):
+        for key, stat in (("mean", "running_mean"), ("var", "running_var")):
+            np.testing.assert_allclose(getattr(vfe.pfn_layers[i].norm, stat).numpy(),
+                                       np.asarray(upd["batch_stats"][f"pfn_{i}"]["norm"][key]),
+                                       rtol=1e-5, atol=1e-6)

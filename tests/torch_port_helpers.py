@@ -5,13 +5,16 @@ VFE reads 11, a 128x128 grid, three backbone levels with a strided-conv and a
 transposed-conv deblock, feature stride 4, the ego head and post-processing.
 Both packages are built from it; JAX is initialised from a seed, its BN
 running statistics are randomised with numpy, and the port receives the same
-variables through ``state_dict_from_jax_variables``.
+variables through ``state_dict_from_jax_variables``. Training tests take a
+batch of two clouds with gt boxes (``make_train_batch``) and the ego
+config's adam_onecycle settings (``OPTIM``).
 """
 import copy
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from pcp_tpu.config import CfgDict
 from pcp_tpu.models import build_network as build_jax
@@ -101,3 +104,37 @@ def build_pair(seed=0, model_cfg=None, batch_points=None):
                          dataset_info=TorchInfo(**info_kwargs()), device="cpu")
     tmodel.load_state_dict(state_dict_from_jax_variables(variables, model_cfg), strict=True)
     return jmodel, variables, tmodel
+
+
+B, N = 2, 2000
+OPTIM = {"OPTIMIZER": "adam_onecycle", "LR": 0.00051, "WEIGHT_DECAY": 0.01, "MOMS": [0.95, 0.85],
+         "PCT_START": 0.4, "DIV_FACTOR": 10, "GRAD_NORM_CLIP": 10}
+
+
+def make_train_batch(rng):
+    """(points, mask, gt_boxes) numpy: two clouds of N points, padding rows in
+    the second, and car boxes, one on a cell corner of the stride-4 map and
+    one past the grid, with padding rows."""
+    pts = clustered_points(rng, B, N)
+    mask = np.ones((B, N), bool)
+    mask[1, -200:] = False
+    gt = np.zeros((B, 12, 8), np.float32)
+    for b, k in ((0, 8), (1, 5)):
+        gt[b, :k, 0:2] = rng.uniform(-11, 11, (k, 2))
+        gt[b, :k, 2] = -1.0
+        gt[b, :k, 3:6] = [4.2, 1.8, 1.6]
+        gt[b, :k, 6] = rng.uniform(-np.pi, np.pi, k)
+        gt[b, :k, 7] = 1
+    gt[0, 0, 0:2] = [-12.8 + 0.8 * 5, -12.8 + 0.8 * 9]  # on a cell corner
+    gt[1, 0, 0] = 13.5  # past the grid: clipped to the last column
+    return pts, mask, gt
+
+
+def jax_batch(pts, mask, gt):
+    return {"points": jnp.asarray(pts), "points_mask": jnp.asarray(mask),
+            "gt_boxes": jnp.asarray(gt), "batch_size": pts.shape[0]}
+
+
+def torch_batch(pts, mask, gt):
+    return {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask),
+            "gt_boxes": torch.from_numpy(gt)}
