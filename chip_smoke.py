@@ -46,9 +46,29 @@ exits non-zero:
    module group beside its tolerance. Then the b4 step time (host clock,
    median of 10 after 3 warm-ups), samples/s, the split into forward+loss,
    backward and optimizer (CUDA events) and the peak memory.
+6. exchange: the car and then the RSU sender (CenterPoint with the HunterJr
+   corrector, ``v2x_pointpillar_basic_{car,rsu}.yaml``) at full width on the
+   card, weights from ``--seed`` with the seg head's output bias shifted so
+   that both branches of the corrector run and the writer has foreground to
+   send (``balance_seg_bias``), b4 (``BATCH_SIZE_PER_GPU``) x 65536
+   7-feature points with a padding tail. One deterministic forward with
+   every launch count at 0 before it: exactly one launch of
+   ``bev_scatter_max``; the points the corrector moved and left; B1 on the
+   inputs that forward gave it against its plain version (exact) and timed
+   at that shape; b1 card against b1 CPU (tolerances printed); the b4
+   forward's time (median of 20 after 3 warm-ups), clouds/s, stages with
+   the corrector split in three, peak memory. Then both senders broadcast
+   through the port's writer into an exchange database under ``build/``
+   (two keyframes: the car's clouds are lidars 2-5, the RSU's first two
+   lidar 0), the ego reads each boxflow back with
+   ``load_and_propagate_modar``, moves it into its frame with seeded poses
+   and appends it with ``modar_to_points`` to two ego clouds of 32768 raw
+   rows; every MoDAR row must equal the sender's valid box after
+   propagation and the pose (computed on the card); the ego forward on the
+   merged batch launches ``bev_scatter_max`` once and equals the CPU's.
 
 The last three lines are the kernels' record (JSON, with the train phase's
-numbers under ``"train"``), the card as nvidia-smi names it, and
+numbers under ``"train"`` and phase 6's under ``"senders"``), the card as nvidia-smi names it, and
 ``{"ok": true, "device": ...}``. Without a CUDA device the script exits 1 and
 prints no result.
 """
@@ -396,14 +416,15 @@ SETTINGS = [(None, "bev_scatter_max"), (True, "bev_scatter_tails"),
             ("fused", "bev_scatter_fused"), ("onehot", "bev_scatter_onehot")]
 
 
-def _card_vs_cpu(model, sd, batch, pre_reduce, pp, post_max):
-    """b1 on the card against b1 on the CPU, same weights and points."""
+def _card_vs_cpu(model, sd, batch, pre_reduce, pp, post_max, phase="slice", clouds=1):
+    """The first ``clouds`` clouds of ``batch`` on the card against the same
+    on the CPU, same weights and points. Returns the largest errors."""
     from pcp_tpu_torch.entry import build
     from pcp_tpu_torch.utils.box_match import match_surviving_boxes
 
     _, _, cpu_model = build(CFG_EGO, device="cpu", pre_reduce=pre_reduce)
     cpu_model.load_state_dict(sd, strict=True)
-    one = {k: v[:1] for k, v in batch.items()}
+    one = {k: v[:clouds] for k, v in batch.items()}
     with torch.inference_mode():
         gpu = model(one)
         t0 = time.perf_counter()
@@ -417,14 +438,18 @@ def _card_vs_cpu(model, sd, batch, pre_reduce, pp, post_max):
         g = gpu["head_preds"][0][name].cpu()
         head_err[name] = (g - t).abs().max().item()
         torch.testing.assert_close(g, t, atol=1e-3, rtol=0)
-    heat = torch.sigmoid(cpu["head_preds"][0]["hm"].double()).numpy().reshape(-1)
-    n_matched = match_surviving_boxes(
-        {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
-        {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()}, heat,
-        top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH), post_max=post_max)
-    log("slice", f"PRE_REDUCE {pre_reduce}: b1 card vs CPU ({cpu_s:.1f} s on the CPU): BEV "
-                 f"max_abs_err {bev_err} (atol 1e-5, rtol 1e-5); head max_abs_err {head_err} "
-                 f"(atol 1e-3); {n_matched} surviving boxes matched under the margin rule")
+    n_matched = 0
+    for i in range(clouds):
+        heat = torch.sigmoid(cpu["head_preds"][0]["hm"][i].double()).numpy().reshape(-1)
+        n_matched += match_surviving_boxes(
+            {k: v[i].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
+            {k: v[i].numpy() for k, v in cpu["final_box_dicts"].items()}, heat,
+            top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH),
+            post_max=post_max)
+    log(phase, f"PRE_REDUCE {pre_reduce}: b{clouds} card vs CPU ({cpu_s:.1f} s on the CPU): BEV "
+               f"max_abs_err {bev_err} (atol 1e-5, rtol 1e-5); head max_abs_err {head_err} "
+               f"(atol 1e-3); {n_matched} surviving boxes matched under the margin rule")
+    return {"bev": bev_err, "head": head_err, "boxes_matched": n_matched, "cpu_s": cpu_s}
 
 
 def phase_slice(seed):
@@ -818,6 +843,434 @@ def phase_train(seed):
     return launches, record
 
 
+# ------------------------------------------------------------ 6. exchange
+
+CFG_CAR = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_basic_car.yaml"
+CFG_RSU = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_basic_rsu.yaml"
+SENDER_N = 65536  # MAX_POINTS_PER_SAMPLE's default; neither sender config sets it
+SENDER_PAD = 1024  # padding rows at the end of each sender cloud
+NUM_SWEEPS, NUM_INSTANCES = 11, 8
+BG_PROB_THRESH = 0.3  # the writer's foreground cut
+# card against CPU, b1 sender forward: the VFE's and the corrector's BEV
+# (atol, rtol), points_cls_prob and points_flow3d atol (valid rows), head
+# outputs atol; a corrector decision may differ only within DECISION_BAND of
+# its boundary (probability, or pixel units for a moved point's coords)
+SENDER_BEV_TOL, CLS_PROB_ATOL, FLOW_ATOL, HEAD_ATOL = (1e-4, 1e-4), 1e-5, 1e-4, 1e-3
+DECISION_BAND = 1e-4
+MODAR_ATOL = 1e-5  # MoDAR rows in the ego batch against the sender's boxes
+# (keyframe, lidar id) of the clouds each sender broadcasts: the car's four
+# clouds are lidars 2-5 of two keyframes, the RSU's first two its lidar 0
+KEYFRAMES = ("kf0", "kf1")
+BROADCAST = {"car": [("kf0", 2), ("kf0", 3), ("kf1", 4), ("kf1", 5)],
+             "rsu": [("kf0", 0), ("kf1", 0)]}
+
+
+def sender_points(rng, b, n):
+    """7-feature sender clouds as ``tests/test_hunter_jr.py`` lays them out,
+    on ``realistic_points``' xyz and intensity (4096 pillars a cloud, 16
+    points each at n 65536): instance -1 or 0..7, sweep 0..10 for instance
+    points and 10 for the rest, time 1 - sweep / 10; the last SENDER_PAD rows
+    padding."""
+    pts = realistic_points(rng, b, n, 7)
+    inst = rng.integers(-1, NUM_INSTANCES, size=(b, n))
+    sweep = np.where(inst >= 0, rng.integers(0, NUM_SWEEPS, size=(b, n)), NUM_SWEEPS - 1)
+    pts[..., 4] = 1.0 - sweep / (NUM_SWEEPS - 1)
+    pts[..., 5] = sweep
+    pts[..., 6] = inst
+    mask = np.ones((b, n), bool)
+    mask[:, -SENDER_PAD:] = False
+    return {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)}
+
+
+def dynamic_mask(cls_prob, mask):
+    """The corrector's moved points: max probability over 0.3, argmax the
+    dynamic class, valid."""
+    best, idx = cls_prob.max(-1)
+    return (best > 0.3) & (idx == 2) & mask
+
+
+def sender_stages(model):
+    """The sender's eval forward cut at module boundaries, the corrector
+    split into its conv_input, its point work (point head, resample,
+    mean-scatter) and its weightor convs and blend."""
+    c = model.corrector
+
+    def points(d):
+        corrected, prob, flow = c.correct_points(d, d["bev_img"])
+        return dict(d, corrected=corrected, points_cls_prob=prob, points_flow3d=flow)
+
+    stages = serving_stages(model)
+    stages[3:3] = [
+        ("corrector.conv_input", lambda d: dict(d, bev_img=c.conv_input(d["spatial_features_2d"]))),
+        ("corrector.points", points),
+        ("corrector.weightor", lambda d: dict(d, spatial_features_2d=c.blend(d["bev_img"],
+                                                                             d["corrected"])))]
+    return stages
+
+
+def corrector_decisions(model, batch, out):
+    """The corrector's discrete decisions per point, recomputed from its
+    outputs with its own arithmetic: whether the point moves, and the pixel
+    (floor of its possibly moved coords) where its features are sampled and
+    scattered. Also how close each decision is to its boundary: the top two
+    class probabilities' gap, the max probability's distance from 0.3, and
+    the moved coords' distance from a pixel border."""
+    c = model.corrector
+    prob, flow = out["points_cls_prob"], out["points_flow3d"]
+    dyn = dynamic_mask(prob, batch["points_mask"])
+    xy = batch["points"][..., 0:2]
+    coord = (torch.where(dyn[..., None], xy + flow[..., 0:2], xy) - c.pc_range[:2]) / c.pixel_size
+    top2 = prob.topk(2, dim=-1).values
+    margin = torch.stack([top2[..., 0] - top2[..., 1], (top2[..., 0] - 0.3).abs(),
+                          torch.where(dyn, (coord - coord.round()).abs().min(-1).values, 1.0)], -1)
+    return torch.cat([dyn[..., None].float(), coord.floor()], -1).cpu(), margin.cpu()
+
+
+def _sender_card_vs_cpu(name, cfg_path, sd, model, batch, pp, post_max):
+    """b1 on the card against b1 on the CPU, the card's forward under
+    deterministic algorithms. A corrector decision (move a point or not, the
+    pixel of a moved point) may fall either way where the two devices'
+    values straddle its boundary, and then the corrected BEV differs there
+    by far more than rounding; such points must lie within DECISION_BAND of
+    the boundary, are dropped from the cloud (masked) and both forwards run
+    again, up to three rounds. Returns the largest errors."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.utils.box_match import match_surviving_boxes
+
+    _, _, cpu_model = build(cfg_path, device="cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    one = {k: v[:1].clone() for k, v in batch.items()}
+    dropped = 0
+    for _ in range(3):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with torch.inference_mode():
+            gpu_one = _on(one, "cuda")
+            gpu = model(gpu_one)
+            torch.cuda.synchronize()
+        torch.use_deterministic_algorithms(False)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            cpu = cpu_model(one)
+        cpu_s = time.perf_counter() - t0
+        got, _ = corrector_decisions(model, gpu_one, gpu)
+        want, margin = corrector_decisions(cpu_model, one, cpu)
+        flips = (got != want).any(-1) & one["points_mask"]
+        if not flips.any():
+            break
+        if not (margin[flips] < DECISION_BAND).any(-1).all():
+            raise AssertionError(f"{name}: a corrector decision differs between card and CPU away "
+                                 f"from its boundary: margins {margin[flips].tolist()}")
+        dropped += int(flips.sum())
+        one["points_mask"] = one["points_mask"] & ~flips
+    else:
+        raise AssertionError(f"{name}: corrector decisions still differ after three rounds")
+    mask = one["points_mask"]
+    err = {}
+
+    def hold(key, got, want, atol, rtol=0.0):
+        err[key] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol,
+                                   msg=lambda m: f"{name} b1 card vs CPU, {key}: {m}")
+
+    hold("vfe_bev", gpu["spatial_features"].cpu(), cpu["spatial_features"], *SENDER_BEV_TOL)
+    hold("points_cls_prob", gpu["points_cls_prob"].cpu()[mask], cpu["points_cls_prob"][mask],
+         CLS_PROB_ATOL)
+    hold("points_flow3d", gpu["points_flow3d"].cpu()[mask], cpu["points_flow3d"][mask], FLOW_ATOL)
+    hold("corrected_bev", gpu["spatial_features_2d"].cpu(), cpu["spatial_features_2d"],
+         *SENDER_BEV_TOL)
+    for branch, t in cpu["head_preds"][0].items():
+        hold(f"head.{branch}", gpu["head_preds"][0][branch].cpu(), t, HEAD_ATOL)
+    heat = torch.sigmoid(cpu["head_preds"][0]["hm"].double()).numpy().reshape(-1)
+    n_matched = match_surviving_boxes(
+        {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
+        {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()}, heat,
+        top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH), post_max=post_max)
+    log("exchange", f"{name}: b1 card vs CPU ({cpu_s:.1f} s on the CPU), max_abs_err {err}; "
+                    f"tolerances: vfe_bev and corrected_bev atol {SENDER_BEV_TOL[0]} rtol "
+                    f"{SENDER_BEV_TOL[1]}, points_cls_prob atol {CLS_PROB_ATOL}, points_flow3d "
+                    f"atol {FLOW_ATOL} (valid rows), head atol {HEAD_ATOL}; every corrector "
+                    f"decision equal ({dropped} points within {DECISION_BAND} of a boundary "
+                    f"decided apart and dropped); {n_matched} surviving boxes matched under the "
+                    "margin rule")
+    return dict(err, boxes_matched=n_matched, points_dropped=dropped, cpu_s=cpu_s)
+
+
+def balance_seg_bias(model, sd, batch):
+    """Seeded weights make one class win every point, so the corrector would
+    move none of them (or all) and the writer would send no foreground.
+    Shift the seg head's output bias, in ``sd`` and in ``model``, so that
+    over the batch's valid points the mean background logit is that of
+    probability 0.3 (the writer's cut) and the mean static and dynamic
+    logits are 0: about half the points then go out as foreground and the
+    dynamic class wins about half, so both branches of the corrector run
+    and the flow pooling has points to pool."""
+    with torch.inference_mode():
+        prob = model(batch)["points_cls_prob"][batch["points_mask"]].double()
+    target = torch.tensor([np.log(BG_PROB_THRESH / (1 - BG_PROB_THRESH)), 0.0, 0.0],
+                          dtype=torch.float64)
+    key = f"corrector.point_head.seg.{len(model.corrector.point_head.seg) - 1}.bias"
+    shift = (torch.log(prob) - torch.log1p(-prob)).mean(0).cpu() - target
+    sd[key] = (sd[key].double() - shift).float()
+    model.load_state_dict(sd, strict=True)
+
+
+def run_sender(name, cfg_path, seed):
+    """One sender at full width on the card. Returns (record, launches in one
+    forward, the host batch, the counted forward's outputs)."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+
+    cfg, info, model = build(cfg_path, device="cuda")
+    sd = seeded_state_dict(model, seed)
+    model.load_state_dict(sd, strict=True)
+    b, n = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), SENDER_N
+    host = sender_points(np.random.default_rng(seed + 3), b, n)
+    batch = _on(host, "cuda")
+    balance_seg_bias(model, sd, batch)
+    pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+    post_max = int(pp.NMS_CONFIG.NMS_POST_MAXSIZE)
+
+    # the counted forward, deterministic; the scatter's inputs kept for the
+    # kernel check below
+    seen, scatter = [], model.vfe.scatter_max
+    model.vfe.scatter_max = lambda *args: seen.append(args) or scatter(*args)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(batch)
+        torch.cuda.synchronize()
+        counts = dict(bs.launches)
+    torch.use_deterministic_algorithms(False)
+    model.vfe.scatter_max = scatter
+    log("exchange", f"{name}: one b{b} x {n} forward ({int(host['points_mask'].sum())} valid "
+                    f"points), full width: kernel launches {counts}")
+    if counts != {k: int(k == "bev_scatter_max") for k in counts}:
+        raise AssertionError(f"{name}: expected one launch of bev_scatter_max, got {counts}")
+    fbd = out["final_box_dicts"]
+    for key, shape in (("points_cls_prob", (b, n, 3)), ("points_flow3d", (b, n, 3))):
+        if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
+            raise AssertionError(f"{name}: {key} {tuple(out[key].shape)} not finite {shape}")
+    if tuple(fbd["pred_boxes"].shape) != (b, post_max, 7) or not torch.isfinite(
+            fbd["pred_boxes"]).all() or not fbd["pred_valid"].any(1).all():
+        raise AssertionError(f"{name}: pred_boxes {tuple(fbd['pred_boxes'].shape)}, valid per "
+                             f"cloud {fbd['pred_valid'].sum(1).tolist()}")
+    dyn = dynamic_mask(out["points_cls_prob"], batch["points_mask"])
+    moved, left = int(dyn.sum()), int((batch["points_mask"] & ~dyn).sum())
+    log("exchange", f"{name}: the corrector moved {moved} valid points by their flow and left "
+                    f"{left}; valid boxes per cloud {fbd['pred_valid'].sum(1).tolist()}")
+    if not moved or not left:
+        raise AssertionError(f"{name}: one branch of the corrector unused ({moved} moved, {left} left)")
+
+    # B1 at the sender's shape, on the inputs the forward gave it
+    (feats, pids, h, w), = seen
+    with torch.inference_mode():
+        err = _hold(bs.bev_scatter_max_sorted_cuda(feats, pids, h, w),
+                    bs.bev_scatter_max_sorted_plain(feats, pids, h, w), 0.0,
+                    f"{name}: bev_scatter_max kernel vs its plain version")
+        kernel_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_cuda(feats, pids, h, w))
+        device_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_cuda(feats, pids, h, w), reps=5)
+        plain_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_plain(feats, pids, h, w))
+        zeros = torch.zeros((feats.shape[0], h * w + 1, feats.shape[2]), device=feats.device)
+        idx = pids.long()[..., None].expand(-1, -1, feats.shape[2])
+        library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, feats, "amax",
+                                                          include_self=True))
+        del zeros, idx
+    bytes_moved = feats.numel() * 4 + pids.numel() * 4 + feats.shape[0] * h * w * feats.shape[2] * 4
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, feats.numel() / F32_OPS_PER_S) * 1e3
+    kernel = {"shape": list(feats.shape), "grid": [h, w], "max_abs_err": err, "ms": kernel_ms,
+              "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "library_ms": library_ms}
+    log("exchange", f"{name}: bev_scatter_max at the sender's shape {tuple(feats.shape)} on "
+                    f"{h}x{w}: max_abs_err {err} (exact equality required); kernel_ms "
+                    f"{kernel_ms:.6f} (5 launches a timing: device_ms {device_ms:.6f}) plain_ms "
+                    f"{plain_ms:.6f} library_ms {library_ms:.6f} (torch.scatter_reduce amax) "
+                    f"bound_ms {bound_ms:.6f} ({bytes_moved} bytes)")
+    del seen, feats, pids
+
+    check = _sender_card_vs_cpu(name, cfg_path, sd, model, host, pp, post_max)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(batch), warmup=3, iters=20)
+        peak = torch.cuda.max_memory_allocated()
+        stages = stage_ms(sender_stages(model), batch)
+    log("exchange", f"{name}: forward b{b} x {n} points, full width, seeded weights, TF32 off: "
+                    f"median {ms:.6f} ms over 20 iterations after 3 warm-ups, "
+                    f"{b / ms * 1e3:.3f} clouds/s; peak memory allocated {peak} bytes "
+                    f"({peak / 2**30:.3f} GiB)")
+    log("exchange", f"{name}: stages (median ms of 10, CUDA events between stages): "
+                    + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+    record = {"config": str(Path(cfg_path).relative_to(REPO)), "batch": b, "points": n,
+              "forward_ms": ms, "clouds_per_s": b / ms * 1e3, "stages_ms": stages,
+              "peak_bytes": peak, "points_moved": moved, "points_left": left,
+              "bev_scatter_max": kernel, "card_vs_cpu": check}
+    keep = {"final_box_dicts": fbd, "points_cls_prob": out["points_cls_prob"],
+            "points_flow3d": out["points_flow3d"]}
+    return record, counts, batch, keep
+
+
+def seeded_pose(rng):
+    """A random SE(3) pose in the ground plane: yaw, x and y within 10 m,
+    z within 1 m, so that many boxes land inside the ego's range."""
+    yaw = rng.uniform(-np.pi, np.pi)
+    tf = np.eye(4)
+    tf[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    tf[:3, 3] = rng.uniform([-10, -10, -1], [10, 10, 1])
+    return tf
+
+
+def expected_modar(batch, out, i, target):
+    """Reference for one broadcast cloud, on the card and independent of the
+    host path: the sender's valid boxes moved by twice the mean flow of the
+    foreground points in each, then by ``target`` in float64. Returns
+    (rows (K, 9): box7, score, label, in the ego's frame)."""
+    from pcp_tpu_torch.ops.points_in_boxes import points_in_boxes
+
+    fbd = out["final_box_dicts"]
+    valid = fbd["pred_valid"][i]
+    boxes = fbd["pred_boxes"][i][valid].double()
+    k = boxes.shape[0]
+    send = (out["points_cls_prob"][i][:, 0] < BG_PROB_THRESH) & batch["points_mask"][i]
+    idx = points_in_boxes(batch["points"][i][send], fbd["pred_boxes"][i][valid])
+    idx = torch.where(idx >= 0, idx, k)
+    flow = out["points_flow3d"][i][send].double()
+    sums = torch.zeros((k + 1, 3), dtype=torch.float64, device=boxes.device).index_add_(0, idx, flow)
+    cnt = torch.zeros(k + 1, dtype=torch.float64, device=boxes.device).index_add_(
+        0, idx, torch.ones_like(flow[:, 0]))
+    center = boxes[:, :3] + 2.0 * sums[:k] / cnt[:k].clamp(min=1.0)[:, None]
+    tf = torch.from_numpy(target).to(boxes.device)
+    yaw = torch.atan2(tf[1, 0], tf[0, 0])
+    heading = boxes[:, 6] + yaw
+    heading = torch.atan2(torch.sin(heading), torch.cos(heading))
+    return torch.cat([center @ tf[:3, :3].T + tf[:3, 3], boxes[:, 3:6], heading[:, None],
+                      fbd["pred_scores"][i][valid].double()[:, None],
+                      fbd["pred_labels"][i][valid].double()[:, None]], 1)
+
+
+def phase_exchange(seed):
+    """The senders broadcast and the ego reads: phase 6. Returns (launches of
+    each kernel in one sender forward, the ``senders`` record)."""
+    import tempfile
+
+    from pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego import (load_and_propagate_modar,
+                                                                     modar_to_points)
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.exchange.database import ExchangeDatabase
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.eval_utils import make_exchange_writer
+    from pcp_tpu_torch.utils.geometry import se3_inverse
+
+    record, runs, launches = {}, {}, None
+    for name, cfg_path in (("car", CFG_CAR), ("rsu", CFG_RSU)):
+        record[name], counts, batch, out = run_sender(name, cfg_path, seed)
+        if launches not in (None, counts):
+            raise AssertionError(f"launches differ between senders: {launches} vs {counts}")
+        launches, runs[name] = counts, (batch, out)
+
+    rng = np.random.default_rng(seed + 4)
+    ego_pose = {kf: seeded_pose(rng) for kf in KEYFRAMES}
+    pose = {cloud: seeded_pose(rng) for clouds in BROADCAST.values() for cloud in clouds}
+    target = {cloud: se3_inverse(ego_pose[cloud[0]]) @ tf for cloud, tf in pose.items()}
+    ego_raw = realistic_points(rng, len(KEYFRAMES), N, 13)
+    ego_raw[..., 11] = rng.integers(0, NUM_SWEEPS, size=ego_raw.shape[:2])  # sweep index
+    ego_raw[..., 4] = 1.0 - ego_raw[..., 11] / (NUM_SWEEPS - 1)
+    ego_raw[..., 12] = -1
+    wire, rows, want = {}, {kf: [] for kf in KEYFRAMES}, {kf: [] for kf in KEYFRAMES}
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        db = ExchangeDatabase(tmp)
+        writer = make_exchange_writer(db, BG_PROB_THRESH)
+        for name, clouds in BROADCAST.items():
+            batch, out = runs[name]
+            k = len(clouds)
+            writer({"points": batch["points"][:k], "points_mask": batch["points_mask"][:k],
+                    "metadata": [{"sample_token": t, "lidar_id": lid} for t, lid in clouds]},
+                   {"final_box_dicts": {key: v[:k] for key, v in out["final_box_dicts"].items()},
+                    "points_cls_prob": out["points_cls_prob"][:k],
+                    "points_flow3d": out["points_flow3d"][:k]})
+            for i, cloud in enumerate(clouds):
+                kf = cloud[0]
+                modar, n_fg = load_and_propagate_modar(db, *cloud, propagate=True)
+                if modar is None or n_fg:
+                    raise AssertionError(f"{cloud}: no boxflow read back")
+                max_sweep = ego_raw[KEYFRAMES.index(kf), :, 11].max()
+                rows[kf].append(modar_to_points(modar, target[cloud], max_sweep))
+                want[kf].append(expected_modar(batch, out, i, target[cloud]))
+                boxflow = db.load(*cloud, "boxflow")
+                wire[f"{kf}_id{cloud[1]}"] = {
+                    "boxes": int(modar.shape[0]),
+                    "boxes_with_flow": int(np.abs(boxflow[:, 9:]).sum(1).astype(bool).sum()),
+                    "boxflow_bytes": db.size_bytes(*cloud, "boxflow"),
+                    "foreground_bytes": db.size_bytes(*cloud, "foreground"),
+                    "modar_bytes": db.size_bytes(*cloud, "modar")}
+        for kf in KEYFRAMES:  # agents that sent nothing for a keyframe read as misses
+            for lid in (0, 2, 3, 4, 5):
+                if (kf, lid) not in pose and load_and_propagate_modar(db, kf, lid)[0] is not None:
+                    raise AssertionError(f"({kf}, {lid}) was not broadcast but reads back")
+    if not any(v["boxes_with_flow"] for v in wire.values()):
+        raise AssertionError("no broadcast box holds a foreground point: the propagation is untested")
+    log("exchange", "bytes per agent and keyframe (boxflow, against the foreground it replaces): "
+                    + "; ".join(f"{k}: {v['boxes']} boxes ({v['boxes_with_flow']} with pooled "
+                                f"flow), boxflow {v['boxflow_bytes']} B vs "
+                                f"foreground {v['foreground_bytes']} B (modar {v['modar_bytes']} B)"
+                                for k, v in wire.items()))
+
+    # the ego's batch: each keyframe's raw cloud, then its MoDAR rows
+    merged = [np.concatenate([ego_raw[j]] + rows[kf]) for j, kf in enumerate(KEYFRAMES)]
+    n_tot = max(len(m) for m in merged)
+    pts = np.zeros((len(merged), n_tot, 13), np.float32)
+    mask = np.zeros((len(merged), n_tot), bool)
+    for j, m in enumerate(merged):
+        pts[j, :len(m)], mask[j, :len(m)] = m, True
+    host = {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)}
+    batch = _on(host, "cuda")
+    modar_err = 0.0
+    for j, kf in enumerate(KEYFRAMES):
+        got = batch["points"][j, N:N + sum(len(r) for r in rows[kf])].double()
+        ref = torch.cat(want[kf])
+        if got.shape[0] != ref.shape[0] or got[:, [3, 4]].any() or (got[:, 12] != -1).any():
+            raise AssertionError(f"{kf}: MoDAR rows {tuple(got.shape)} against {tuple(ref.shape)}")
+        got = torch.cat([got[:, 0:3], got[:, 5:11]], 1)
+        dh = torch.atan2(torch.sin(got[:, 6] - ref[:, 6]), torch.cos(got[:, 6] - ref[:, 6]))
+        err = max((got[:, [0, 1, 2, 3, 4, 5, 7, 8]] - ref[:, [0, 1, 2, 3, 4, 5, 7, 8]]).abs().max().item(),
+                  dh.abs().max().item())
+        if err > MODAR_ATOL:
+            raise AssertionError(f"{kf}: MoDAR rows differ from the senders' boxes by {err}")
+        modar_err = max(modar_err, err)
+    log("exchange", f"ego batch b{len(merged)}: {N} raw rows a cloud, then "
+                    f"{[sum(len(r) for r in rows[kf]) for kf in KEYFRAMES]} MoDAR rows from "
+                    f"agents {[[c[1] for c in BROADCAST['rsu'] + BROADCAST['car'] if c[0] == kf] for kf in KEYFRAMES]}; "
+                    f"every row equals the sender's valid box after propagation and the pose "
+                    f"(max_abs_err {modar_err}, atol {MODAR_ATOL})")
+
+    cfg, _, ego = build(CFG_EGO, device="cuda")
+    sd = seeded_state_dict(ego, seed)
+    ego.load_state_dict(sd, strict=True)
+    pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = ego(batch)
+        torch.cuda.synchronize()
+        counts = dict(bs.launches)
+    torch.use_deterministic_algorithms(False)
+    if counts != {k: int(k == "bev_scatter_max") for k in counts}:
+        raise AssertionError(f"ego on the merged cloud: expected one launch of bev_scatter_max, "
+                             f"got {counts}")
+    log("exchange", f"ego forward on the merged batch: kernel launches {counts}; valid boxes per "
+                    f"cloud {out['final_box_dicts']['pred_valid'].sum(1).tolist()}")
+    # deterministic, so that the card's sums come in the same order in every run
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ego_check = _card_vs_cpu(ego, sd, batch, None, pp, int(pp.NMS_CONFIG.NMS_POST_MAXSIZE),
+                             phase="exchange", clouds=len(merged))
+    torch.use_deterministic_algorithms(False)
+    record["exchange"] = {"keyframes": list(KEYFRAMES), "wire": wire, "modar_max_abs_err": modar_err,
+                          "ego_points": [int(m.sum()) for m in mask], "ego_launches": counts,
+                          "ego_card_vs_cpu": ego_check}
+    return launches, record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -834,10 +1287,12 @@ def main(argv=None):
     for kernel, count in phase_slice(args.seed).items():
         records[kernel]["launches"] = count
     train_launches, train = phase_train(args.seed)
+    sender_launches, senders = phase_exchange(args.seed)
     for kernel, record in records.items():
         record["launches_per_train_step"] = train_launches.get(kernel)
+        record["launches_per_sender_forward"] = sender_launches[kernel]
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
-    print(json.dumps({"kernels": list(records.values()), "train": train}))
+    print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

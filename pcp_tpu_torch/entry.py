@@ -5,8 +5,12 @@
         boxes = model({"points": points, "points_mask": mask})["final_box_dicts"]
 
 ``points`` is (B, N, C) float32 and ``points_mask`` (B, N) bool, on the
-model's device. The model is in eval mode with initial weights; load trained
-ones with ``model.load_state_dict`` (see ``utils/jax_weights.py``).
+model's device. The senders (``CFG_CAR``, ``CFG_RSU``: CenterPoint with the
+HunterJr corrector, 7-feature points) also return ``points_cls_prob`` and
+``points_flow3d``, which ``train/eval_utils.py::make_exchange_writer``
+broadcasts through ``exchange/database.py``. The model is in eval mode with
+initial weights; load trained ones with ``model.load_state_dict`` (see
+``utils/jax_weights.py``).
 """
 from pathlib import Path
 
@@ -14,6 +18,8 @@ from .config import ROOT_DIR, CfgDict, cfg_from_yaml_file
 from .models import DatasetInfo, build_network
 
 CFG_EGO = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_ego.yaml"
+CFG_CAR = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_car.yaml"
+CFG_RSU = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_rsu.yaml"
 
 
 def build(cfg_path=CFG_EGO, device="cuda", pre_reduce=None):

@@ -2,10 +2,10 @@
 
 Counterpart of ``pcp_tpu/models/detectors/detector_template.py``. The MODEL
 config names the sub-modules; each is registered under its pcdet name
-(``vfe``, ``map_to_bev``, ``backbone_2d``, ``dense_head``) so that the state
-dict carries pcdet's keys, and the forward threads a batch dict through them
-in that order. Only the modules of the pillar CenterPoint are ported; any
-other MODEL key raises.
+(``vfe``, ``map_to_bev``, ``backbone_2d``, ``corrector``, ``dense_head``) so
+that the state dict carries pcdet's keys, and the forward threads a batch
+dict through them in that order. Only the modules of the pillar CenterPoint
+and the HunterJr corrector are ported; any other MODEL key raises.
 """
 import dataclasses
 from typing import Tuple
@@ -14,7 +14,8 @@ from torch import nn
 
 # MODEL keys the slice builds, in forward order
 MODULE_KEYS = (("VFE", "vfe"), ("MAP_TO_BEV", "map_to_bev"),
-               ("BACKBONE_2D", "backbone_2d"), ("DENSE_HEAD", "dense_head"))
+               ("BACKBONE_2D", "backbone_2d"), ("CORRECTOR", "corrector"),
+               ("DENSE_HEAD", "dense_head"))
 # MODEL keys that configure no module
 PLAIN_KEYS = ("NAME", "POST_PROCESSING", "BF16")
 
@@ -58,6 +59,7 @@ class Detector3DTemplate(nn.Module):
 
     def build_module_list(self):
         from ..backbones_2d import build_backbone_2d
+        from ..bev_layers import build_corrector
         from ..dense_heads import build_dense_head
         from ..map_to_bev import build_map_to_bev
         from ..vfe import build_vfe
@@ -84,6 +86,9 @@ class Detector3DTemplate(nn.Module):
             self.add_module("backbone_2d", backbone)
             names.append("backbone_2d")
             num_bev_features = backbone.num_bev_features
+        if cfg.get("CORRECTOR") is not None:
+            self.add_module("corrector", build_corrector(cfg["CORRECTOR"], info, num_bev_features))
+            names.append("corrector")
         if cfg.get("DENSE_HEAD") is not None:
             self.add_module("dense_head", build_dense_head(cfg["DENSE_HEAD"], info,
                                                            num_bev_features, self.num_class))

@@ -1,7 +1,8 @@
 """JAX (flax) variables -> the port's state dict.
 
 The inverse of ``pcp_tpu/utils/torch_converter.py::convert_centerpoint_state_dict``
-for the pillar CenterPoint: it takes ``{'params', 'batch_stats'}`` as numpy
+for the pillar CenterPoint and its HunterJr corrector (the point head and the
+weightor; the object head trains only, ROADMAP A7b): it takes ``{'params', 'batch_stats'}`` as numpy
 arrays and returns tensors under pcdet's names, ready for
 ``load_state_dict(strict=True)``. :func:`tensors_from_jax_params` maps any
 tree shaped like ``params`` the same way (gradients, adam_onecycle's ``mu``
@@ -14,6 +15,8 @@ by leaf against the JAX package's.
     (in, out, kh, kw), flipped spatially (flax does not flip, torch does)
   * BatchNorm scale/bias, mean/var  -> weight/bias, running_mean/running_var
     (num_batches_tracked 0)
+  * MLP ``lin_{i}`` / ``norm_{i}``     -> pcdet's Sequential, Linear at 3i,
+    BN at 3i+1
 """
 import numpy as np
 import torch
@@ -54,13 +57,16 @@ def _put_conv(sd, prefix, params, to_weight=_conv):
 def state_dict_from_jax_variables(variables, model_cfg):
     """Map flax ``variables`` of a pillar CenterPoint built from ``model_cfg``
     (the MODEL config) to a pcdet-named state dict of tensors. Sub-modules
-    whose key (VFE, BACKBONE_2D, DENSE_HEAD) the config lacks are skipped."""
+    whose key (VFE, BACKBONE_2D, CORRECTOR, DENSE_HEAD) the config lacks are
+    skipped."""
     params, stats = variables["params"], variables.get("batch_stats")
     sd = {}
     if "VFE" in model_cfg:
         _vfe(sd, params["vfe"], _sub(stats, "vfe"), model_cfg["VFE"])
     if "BACKBONE_2D" in model_cfg:
         _backbone(sd, params["backbone_2d"], _sub(stats, "backbone_2d"), model_cfg["BACKBONE_2D"])
+    if "CORRECTOR" in model_cfg:
+        _corrector(sd, params["corrector"], _sub(stats, "corrector"))
     if "DENSE_HEAD" in model_cfg:
         _head(sd, params["dense_head"], _sub(stats, "dense_head"), model_cfg["DENSE_HEAD"])
     return sd
@@ -117,3 +123,30 @@ def _head(sd, hd_p, hd_s, hcfg):
                 _put_conv(sd, f"{base}.{k}.0", hp[f"{name}_conv{k}"])
                 _put_bn(sd, f"{base}.{k}.1", hp[f"{name}_norm{k}"], _sub(hs, f"{name}_norm{k}"))
             _put_conv(sd, f"{base}.{num_conv - 1}", hp[f"{name}_out"])
+
+
+def _corrector(sd, cp, cs):
+    _put_conv(sd, "corrector.conv_input.0", cp["conv_input"]["conv"])
+    _put_bn(sd, "corrector.conv_input.1", cp["conv_input"]["norm"],
+            _sub(_sub(cs, "conv_input"), "norm"))
+    for name in ("local_feat_predictor", "seg", "reg_flow3d", "instance_embedding"):
+        put_mlp(sd, f"corrector.point_head.{name}", cp["point_head"][name],
+                _sub(_sub(cs, "point_head"), name))
+    _put_conv(sd, "corrector.conv_weightor.0.0", cp["weightor_conv"]["conv"])
+    _put_bn(sd, "corrector.conv_weightor.0.1", cp["weightor_conv"]["norm"],
+            _sub(_sub(cs, "weightor_conv"), "norm"))
+    _put_conv(sd, "corrector.conv_weightor.1", cp["weightor_out"])
+
+
+def put_mlp(sd, prefix, params, stats):
+    """An MLP's ``lin_{i}`` / ``norm_{i}`` -> ``{prefix}.{3i}`` (Linear) and
+    ``{prefix}.{3i+1}`` (BN), as pcdet's Sequential holds them."""
+    i = 0
+    while f"lin_{i}" in params:
+        lin, base = params[f"lin_{i}"], f"{prefix}.{3 * i}"
+        sd[f"{base}.weight"] = _linear(lin["kernel"])
+        if "bias" in lin:
+            sd[f"{base}.bias"] = _tensor(lin["bias"])
+        if f"norm_{i}" in params:
+            _put_bn(sd, f"{prefix}.{3 * i + 1}", params[f"norm_{i}"], _sub(stats, f"norm_{i}"))
+        i += 1

@@ -7,7 +7,9 @@ Both packages are built from it; JAX is initialised from a seed, its BN
 running statistics are randomised with numpy, and the port receives the same
 variables through ``state_dict_from_jax_variables``. Training tests take a
 batch of two clouds with gt boxes (``make_train_batch``) and the ego
-config's adam_onecycle settings (``OPTIM``).
+config's adam_onecycle settings (``OPTIM``). The senders' structure
+(``CAR_CFG``: 7-feature points of which the VFE reads 5, and a HunterJr
+corrector with hidden [8]) shares the grid, backbone and head.
 """
 import copy
 
@@ -59,17 +61,25 @@ MODEL_CFG = {
 }
 
 
-def info_kwargs():
-    return dict(class_names=("car",), num_point_features=NUM_FEATURES,
+CAR_CFG = copy.deepcopy(MODEL_CFG)
+CAR_CFG["VFE"]["NUM_RAW_POINT_FEATURES"] = 5
+CAR_CFG["CORRECTOR"] = {"NAME": "HunterJr", "NUM_SWEEPS": 11, "BEV_IMAGE_STRIDE": 4,
+                        "CONV_INPUT_CHANNELS": 64, "POINT_HEAD_HIDDEN_CHANNELS": [8],
+                        "OBJ_HEAD_HIDDEN_CHANNELS": [8], "THRESHOLD_POINT_CLS_PROB": 0.3}
+CAR_FEATURES = 7
+
+
+def info_kwargs(num_features=NUM_FEATURES):
+    return dict(class_names=("car",), num_point_features=num_features,
                 point_cloud_range=PC_RANGE, voxel_size=VOXEL, grid_size=(GRID, GRID, 1))
 
 
-def clustered_points(rng, b, n, spread=1.5, n_clusters=24):
-    """(B, N, 13) float32 points around random cluster centres, all in range,
-    with every feature column filled."""
+def clustered_points(rng, b, n, spread=1.5, n_clusters=24, num_features=NUM_FEATURES):
+    """(B, N, num_features) float32 points around random cluster centres, all
+    in range, with every feature column filled."""
     centers = rng.uniform(-10, 10, size=(b, n_clusters, 2))
     ci = rng.integers(0, n_clusters, size=n)
-    pts = rng.uniform(0, 1, size=(b, n, NUM_FEATURES)).astype(np.float32)
+    pts = rng.uniform(0, 1, size=(b, n, num_features)).astype(np.float32)
     pts[..., 0:2] = np.clip(centers[:, ci, :] + rng.normal(0, spread, (b, n, 2)), -12.7, 12.69)
     pts[..., 2] = rng.uniform(-3, -0.5, (b, n))
     return pts
@@ -88,20 +98,23 @@ def randomize_batch_stats(tree, rng):
     return out
 
 
-def build_pair(seed=0, model_cfg=None, batch_points=None):
+def build_pair(seed=0, model_cfg=None, batch_points=None, num_features=NUM_FEATURES):
     """JAX model, its variables (numpy) and the port's CPU model holding the
     same weights."""
     model_cfg = copy.deepcopy(model_cfg or MODEL_CFG)
     rng = np.random.default_rng(seed)
-    jmodel = build_jax(CfgDict(model_cfg), num_class=1, dataset_info=JaxInfo(**info_kwargs()))
-    pts = batch_points if batch_points is not None else clustered_points(rng, 1, 256)
-    batch = {"points": jnp.asarray(pts), "points_mask": jnp.ones(pts.shape[:2], bool),
-             "batch_size": pts.shape[0]}
-    init = jmodel.init(jax.random.PRNGKey(seed), batch, train=False)
+    info = info_kwargs(num_features)
+    jmodel = build_jax(CfgDict(model_cfg), num_class=1, dataset_info=JaxInfo(**info))
+    pts = (batch_points if batch_points is not None
+           else clustered_points(rng, 1, 256, num_features=num_features))
+    # jitted: one compile of the model in place of an op-by-op compile of each op
+    init = jax.jit(lambda key, p, m: jmodel.init(
+        key, {"points": p, "points_mask": m, "batch_size": p.shape[0]}, train=False))(
+        jax.random.PRNGKey(seed), jnp.asarray(pts), jnp.ones(pts.shape[:2], bool))
     variables = {"params": jax.tree_util.tree_map(np.asarray, init["params"]),
                  "batch_stats": randomize_batch_stats(init["batch_stats"], rng)}
     tmodel = build_torch(TorchCfgDict(model_cfg), num_class=1,
-                         dataset_info=TorchInfo(**info_kwargs()), device="cpu")
+                         dataset_info=TorchInfo(**info), device="cpu")
     tmodel.load_state_dict(state_dict_from_jax_variables(variables, model_cfg), strict=True)
     return jmodel, variables, tmodel
 
