@@ -29,7 +29,10 @@ exits non-zero:
    final boxes must equal the default setting's (that forward runs under
    ``torch.use_deterministic_algorithms``, the timed ones do not). b1 on the card against b1
    on the CPU for unset and fused; then the forward's and the stages' times
-   (20 iterations for the default setting, 10 for the others).
+   (20 iterations for the default setting, 10 for the others). The default
+   setting once more with the trained checkpoint
+   (``results/bench_ckpt_torch.pt``): NMS candidates a cloud beside the
+   seeded weights', b1 card against CPU, the forward and its stages.
 5. train: the same model trained on the card at b4 x 32768 points
    (``BATCH_SIZE_PER_GPU``; ``MAX_POINTS_PER_SAMPLE`` as the synthetic-data
    train recipe sets it), synthetic car boxes
@@ -43,7 +46,8 @@ exits non-zero:
    and fused kernels, within a stated tolerance for the one-hot kernel).
    One b1 step on the card against the same step on the CPU: loss, every
    gradient after the clip, running statistics, the largest error of each
-   module group beside its tolerance. Then the b4 step time (host clock,
+   module group beside its limit (a group whose limit the CPU's own spread
+   puts at GRAD_LIMIT_CAP or more is reported as loosely held). Then the b4 step time (host clock,
    median of 10 after 3 warm-ups), samples/s, the split into forward+loss,
    backward and optimizer (CUDA events) and the peak memory.
 6. exchange: the car and then the RSU sender (CenterPoint with the HunterJr
@@ -66,17 +70,38 @@ exits non-zero:
    rows; every MoDAR row must equal the sender's valid box after
    propagation and the pose (computed on the card); the ego forward on the
    merged batch launches ``bev_scatter_max`` once and equals the CPU's.
+7. sender_train: the car and then the RSU trained at full width on the card,
+   b4 x 65536 7-feature points (``sender_train_batch``: 48 instances a cloud
+   padded to 256, a fifth of the points on them, a quarter of them moving,
+   gt boxes padded to 500, a padding tail), initial weights from
+   ``create_train_state``, the config's adam_onecycle. SENDER_TRAIN_STEPS
+   steps on one batch with every launch count at 0 before them: one
+   ``bev_scatter_max`` a step and no other kernel, every loss and tb key
+   finite, the loss falling; B1 on the inputs the first step gave it against
+   its plain version (exact) and timed there; the step's time (host clock,
+   median of 10 after 3 warm-ups), samples/s, its forward+loss / backward /
+   optimizer split, a ``torch.profiler`` trace of one step (top device
+   operations, idle share), the training forward's stages, the memory held
+   for the backward and the peak memory; one b1 step from seeded weights on the
+   card against the CPU as phase 5 holds the ego's, the points' class
+   probabilities and flow too, with the corrector's discrete decisions of the
+   card and of the CPU at half its threads pinned to the CPU's, each one
+   that would differ within its noise band of the boundary.
+8. bench: ``pcp_tpu_torch/bench.py`` with the trained checkpoint (its
+   profile lines, and its result line printed before the last three lines);
+   the timed passes launch ``bev_scatter_max`` once a forward.
 
 The last three lines are the kernels' record (JSON, with the train phase's
-numbers under ``"train"`` and phase 6's under ``"senders"``), the card as nvidia-smi names it, and
-``{"ok": true, "device": ...}``. Without a CUDA device the script exits 1 and
-prints no result.
+numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
+``"sender_train"``, the trained ego's under ``"trained_ego"`` and the bench's
+profile under ``"bench_profile"``), the card as nvidia-smi names it, and
+``{"ok": true, "device": ...}``; the bench's line comes just before them.
+Without a CUDA device the script exits 1 and prints no result.
 """
 import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -135,9 +160,9 @@ def cuda_ms(fn, warmup=3, iters=20, reps=1):
 
 
 def phase_device():
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    from pcp_tpu_torch.bench import card_name
+
+    card = card_name()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("device", f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -520,6 +545,8 @@ def phase_slice(seed):
                      f"{B / ms * 1e3:.3f} clouds/s")
         log("slice", f"PRE_REDUCE {pre_reduce}: stages (median ms of 10, CUDA events between "
                      "stages): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+        if pre_reduce is None:
+            trained = with_trained_weights(model, batch, pp, post_max, default_out, ms, stages)
         vfes[pre_reduce] = model.vfe
         del model
 
@@ -532,7 +559,50 @@ def phase_slice(seed):
                 rounds[k].append(cuda_ms(lambda: vfe(batch)))
     log("slice", "vfe alone, settings in turns (median of 3 rounds of the median of 20, ms): "
                  + ", ".join(f"PRE_REDUCE {k}: {statistics.median(v):.6f}" for k, v in rounds.items()))
-    return launches
+    return launches, trained
+
+
+def nms_candidates(head_preds, pp):
+    """Boxes each cloud hands to NMS: of its MAX_OBJ_PER_SAMPLE best
+    heatmap scores, those over SCORE_THRESH."""
+    hm = torch.sigmoid(head_preds[0]["hm"].float()).flatten(1)
+    top = hm.topk(int(pp.MAX_OBJ_PER_SAMPLE), dim=1).values
+    return (top > float(pp.SCORE_THRESH)).sum(1).tolist()
+
+
+def with_trained_weights(model, batch, pp, post_max, seeded_out, seeded_ms, seeded_stages):
+    """The default setting's forward again with the trained checkpoint
+    (``results/bench_ckpt_torch.pt``, loaded with strict=True): the NMS
+    candidates and boxes a cloud, b1 card against CPU, the forward's time
+    and its stages beside the seeded weights'. Returns the record."""
+    from pcp_tpu_torch.bench import CKPT
+
+    sd = torch.load(CKPT, map_location="cuda", weights_only=True)
+    model.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        out = model(batch)
+    valid = out["final_box_dicts"]["pred_valid"].sum(1).tolist()
+    cand = {"seeded": nms_candidates(seeded_out["head_preds"], pp),
+            "trained": nms_candidates(out["head_preds"], pp)}
+    if not all(valid) or not torch.isfinite(out["final_box_dicts"]["pred_boxes"]).all():
+        raise AssertionError(f"trained weights: valid boxes per cloud {valid}")
+    log("slice", f"trained checkpoint {CKPT.relative_to(REPO)}: NMS candidates per cloud "
+                 f"{cand['trained']} (seeded weights: {cand['seeded']}); valid boxes per cloud {valid}")
+    # the trained VFE's BN scales amplify the order in which the card's
+    # atomics sum the pillar means: its forward runs deterministic here
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    check = _card_vs_cpu(model, sd, batch, None, pp, post_max)
+    torch.use_deterministic_algorithms(False)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(batch), warmup=3, iters=20)
+        stages = stage_ms(serving_stages(model), batch)
+    log("slice", f"trained checkpoint: forward b{B} x {N} median {ms:.6f} ms over 20 iterations, "
+                 f"{B / ms * 1e3:.3f} clouds/s (seeded weights: {seeded_ms:.6f} ms); stages "
+                 "(median ms of 10): " + ", ".join(f"{k} {v:.6f} (seeded {seeded_stages[k]:.6f})"
+                                                   for k, v in stages.items()))
+    return {"forward_ms": ms, "clouds_per_s": B / ms * 1e3, "stages_ms": stages,
+            "seeded_forward_ms": seeded_ms, "seeded_stages_ms": seeded_stages,
+            "nms_candidates": cand, "valid_boxes": valid, "card_vs_cpu": check}
 
 
 def serving_stages(model):
@@ -574,9 +644,12 @@ TRAIN_STEPS = 50  # the overfit run: up to this many steps on one batch
 # rounding: the CPU's own step differs by up to 13% of a leaf's largest |g|
 # between two thread counts, which only reorder its sums. So each quantity
 # is held to the larger of its tolerance here and SPREAD_FACTOR times that
-# spread, measured in the same run.
+# spread, measured in the same run. A gradient group whose limit comes to
+# GRAD_LIMIT_CAP or more is reported as loosely held: there a gradient of
+# half its size would pass.
 LOSS_RTOL, GRAD_RTOL, GRAD_ZERO_ATOL, STATS_ATOL = 1e-5, 1e-4, 1e-6, 1e-5
 SPREAD_FACTOR = 3.0
+GRAD_LIMIT_CAP = 0.5
 # one-hot setting against the default, same step: its BEV rounds by up to
 # 2^-23 relative, which the backbone carries into every gradient
 ONEHOT_GRAD_RTOL = 1e-3
@@ -607,32 +680,141 @@ def _on(batch, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def _one_step(model, state_dict, cfg, batch):
-    """Load ``state_dict``, take one train step with a fresh optimizer.
-    Returns (loss, {name: gradient after the clip}, state dict after)."""
+def _one_step(model, state_dict, cfg, batch, pin=None):
+    """Load ``state_dict`` and take one train step with a fresh optimizer,
+    a sender's corrector decisions pinned to those of the step ``pin``
+    (``pin_decisions``) where one is given. Returns the loss, tb, gradients
+    after the clip and the state dict after the step; for a sender also the
+    training forward's point probabilities and flow, the valid rows, and the
+    corrector's own decisions and their margins, on the CPU."""
     from pcp_tpu_torch.train.optimization import build_optimizer
-    from pcp_tpu_torch.train.train_state import make_train_step
+    from pcp_tpu_torch.train.train_state import take_train_step
 
     model.load_state_dict(state_dict, strict=True)
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
                                    total_epochs=1)
-    loss, _ = make_train_step(model, optimizer)(batch)
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
-    return loss.item(), grads, {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if pin is not None:
+        pin_decisions(model, pin)
+    out = take_train_step(model, optimizer, batch)
+    if pin is not None:
+        del model.corrector.move_points
+    step = {"loss": out["loss"].item(), "tb": {k: v.item() for k, v in out["tb_dict"].items()},
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+    if "points_cls_prob" in out:
+        with torch.no_grad():
+            step["decisions"], step["margin"] = corrector_decisions(model, batch, out)
+        step["prob"] = out["points_cls_prob"].detach().cpu()
+        step["flow"] = out["points_flow3d"].detach().cpu()
+        step["mask"] = batch["points_mask"].cpu()
+    return step
 
 
-def biases_before_bn(model):
-    """Conv biases that a BN follows: their gradient is 0 in exact arithmetic."""
-    from torch import nn
+def card_and_cpu_steps(model, cfg_path, cfg, state_dict, one):
+    """One b1 train step from ``state_dict`` on the card and on the CPU with
+    all its threads and with half, under deterministic algorithms; a
+    sender's two later steps take the corrector decisions of the CPU's
+    first where theirs differ (``pin_decisions``). Returns (card, CPU, CPU at
+    half the threads, the CPU step's seconds)."""
+    from pcp_tpu_torch.entry import build
 
-    names = set()
-    for prefix, m in model.named_modules():
-        if isinstance(m, nn.Sequential):
-            kids = list(m.named_children())
-            for (name, a), (_, b) in zip(kids, kids[1:]):
-                if isinstance(a, nn.Conv2d) and a.bias is not None and isinstance(b, nn.BatchNorm2d):
-                    names.add(f"{prefix}.{name}.bias")
-    return names
+    _, _, cpu_model = build(cfg_path, device="cpu")
+    cpu_sd = {k: v.cpu() for k, v in state_dict.items()}
+    threads = torch.get_num_threads()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    cpu = _one_step(cpu_model, cpu_sd, cfg, one)
+    cpu_s = time.perf_counter() - t0
+    pin = cpu if hasattr(model, "corrector") else None
+    torch.set_num_threads(max(1, threads // 2))
+    cpu_half = _one_step(cpu_model, cpu_sd, cfg, one, pin)
+    torch.set_num_threads(threads)
+    gpu = _one_step(model, state_dict, cfg, _on(one, "cuda"), pin)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    return gpu, cpu, cpu_half, cpu_s
+
+
+def hold_to_cpu_spread(phase, name, gpu, cpu, cpu_half, zero_names, cpu_s):
+    """The card's step against the CPU's: loss and tb (relative), gradients
+    after the clip by group (``grad_errors``), running statistics by group
+    and, for a sender, the training forward's point probabilities and flow
+    on valid rows (absolute), each held to max(its tolerance, SPREAD_FACTOR
+    x the same error of the CPU's step at half the threads). Returns
+    ``{quantity: (error, limit)}`` and the gradient groups whose limit is
+    GRAD_LIMIT_CAP or more (loosely held)."""
+    def errors(got):
+        stats, out = {}, {}
+        for key, v in cpu["state"].items():
+            if ".running_" in key:
+                group = key.split(".")[0]
+                stats[group] = max(stats.get(group, 0.0),
+                                   (got["state"][key].cpu() - v).abs().max().item())
+        tb = max(abs(got["tb"][k] - v) / max(abs(v), 1e-30) for k, v in cpu["tb"].items())
+        for key in ("prob", "flow"):
+            if key in cpu:
+                out[key] = (got[key] - cpu[key])[cpu["mask"]].abs().max().item()
+        return (abs(got["loss"] - cpu["loss"]) / abs(cpu["loss"]), tb,
+                grad_errors(got["grads"], cpu["grads"], zero_names), stats, out)
+
+    loss_rel, tb_rel, errs, stats_err, point_err = errors(gpu)
+    loss_spread, tb_spread, spread, stats_spread, point_spread = errors(cpu_half)
+    limits = {"loss": (loss_rel, max(LOSS_RTOL, SPREAD_FACTOR * loss_spread)),
+              "tb": (tb_rel, max(LOSS_RTOL, SPREAD_FACTOR * tb_spread))}
+    for key, atol in (("prob", CLS_PROB_ATOL), ("flow", FLOW_ATOL)):
+        if key in point_err:
+            limits[f"points_{key}"] = (point_err[key], max(atol, SPREAD_FACTOR * point_spread[key]))
+    for group, d in errs.items():
+        for key, (err, _) in d.items():
+            base = GRAD_ZERO_ATOL if key == "zero_grad" else GRAD_RTOL
+            limits[f"{group} {key}"] = (err, max(base, SPREAD_FACTOR * spread[group][key][0]))
+        limits[f"{group} running statistics"] = (
+            stats_err[group], max(STATS_ATOL, SPREAD_FACTOR * stats_spread[group]))
+    loose = sorted(k for k, (_, lim) in limits.items() if k.endswith(" rel") and lim >= GRAD_LIMIT_CAP)
+    log(phase, f"{name}b1 step card vs CPU ({cpu_s:.1f} s on the CPU): loss {gpu['loss']} vs "
+               f"{cpu['loss']}; gradients after the clip, by group, largest error over the leaf's "
+               f"largest |g| (biases in front of a BN: over the model's largest |g|): {errs}; the "
+               f"CPU at half its threads: {spread}; each against max(tolerance, {SPREAD_FACTOR} x "
+               "the CPU's spread): " + ", ".join(f"{k} {e:.3e} <= {lim:.3e}"
+                                                 for k, (e, lim) in limits.items())
+               + f"; loosely held (the CPU's own spread puts the limit at {GRAD_LIMIT_CAP} or "
+               "more): " + (", ".join(loose) or "none"))
+    bad = [f"{k} {e} > {lim}" for k, (e, lim) in limits.items() if e > lim]
+    if bad:
+        raise AssertionError(f"{name}b1 card vs CPU outside tolerance: " + "; ".join(bad))
+    return limits, loose
+
+
+def time_train_steps(model, optimizer, batch, iters=10, warmup=3):
+    """The train step: host clock around steps that end in a synchronize
+    (median of ``iters`` after ``warmup``), the split into forward+loss,
+    backward and optimizer by CUDA events (medians), and the peak memory
+    allocated. Returns (step ms, split, peak bytes)."""
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, split = [], {"forward_loss": [], "backward": [], "optimizer": []}
+    for it in range(warmup + iters):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(batch)
+        events[1].record()
+        out["loss"].backward()
+        events[2].record()
+        optimizer.step()
+        events[3].record()
+        torch.cuda.synchronize()
+        del out
+        if it >= warmup:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for i, key in enumerate(split):
+                split[key].append(events[i].elapsed_time(events[i + 1]))
+    return (statistics.median(step_ms), {k: statistics.median(v) for k, v in split.items()},
+            torch.cuda.max_memory_allocated())
 
 
 def grad_errors(got, want, zero_names):
@@ -661,7 +843,7 @@ def phase_train(seed):
     from pcp_tpu_torch.entry import build
     from pcp_tpu_torch.ops import bev_scatter
     from pcp_tpu_torch.train.optimization import build_optimizer
-    from pcp_tpu_torch.train.train_state import create_train_state, make_train_step
+    from pcp_tpu_torch.train.train_state import biases_before_bn, create_train_state, make_train_step
 
     cfg, info, model = build(CFG_EGO, device="cuda")
     # BATCH_SIZE_PER_GPU of the config; MAX_POINTS_PER_SAMPLE 32768, as the
@@ -705,7 +887,8 @@ def phase_train(seed):
     for pre_reduce, kernel in SETTINGS:
         setting_model = model if pre_reduce is None else build(CFG_EGO, "cuda", pre_reduce)[2]
         bev_scatter.reset_launches()
-        loss, grads, _ = _one_step(setting_model, initial, cfg, batch)
+        one_step = _one_step(setting_model, initial, cfg, batch)
+        loss, grads = one_step["loss"], one_step["grads"]
         torch.cuda.synchronize()
         counts = dict(bev_scatter.launches)
         if counts != {k: int(k == kernel) for k in counts}:
@@ -733,32 +916,10 @@ def phase_train(seed):
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
 
-    # time the b4 step: host clock around steps that end in a synchronize;
-    # the split by CUDA events between forward+loss, backward and optimizer
     model.load_state_dict(initial, strict=True)
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
                                    total_epochs=1)
-    model.train()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, split = [], {"forward_loss": [], "backward": [], "optimizer": []}
-    for it in range(13):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        events[0].record()
-        optimizer.zero_grad(set_to_none=True)
-        out = model(batch)
-        events[1].record()
-        out["loss"].backward()
-        events[2].record()
-        optimizer.step()
-        events[3].record()
-        torch.cuda.synchronize()
-        if it >= 3:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            for i, key in enumerate(split):
-                split[key].append(events[i].elapsed_time(events[i + 1]))
-    peak = torch.cuda.max_memory_allocated()
+    step_ms, split, peak = time_train_steps(model, optimizer, batch)
     # the training forward cut at module boundaries (targets in dense_head)
     head = model.dense_head
     stages = stage_ms([("vfe", model.vfe), ("map_to_bev", model.map_to_bev),
@@ -777,9 +938,8 @@ def phase_train(seed):
     model.train()
     log("train", f"b{b} backbone_2d in eval mode under inference_mode, same BEV: "
                  f"{eval_backbone_ms:.6f} ms (median of 10, CUDA events)")
-    record = {"batch": b, "points": n, "step_ms": statistics.median(step_ms),
-              "samples_per_s": b / statistics.median(step_ms) * 1e3,
-              **{f"{k}_ms": statistics.median(v) for k, v in split.items()},
+    record = {"batch": b, "points": n, "step_ms": step_ms, "samples_per_s": b / step_ms * 1e3,
+              **{f"{k}_ms": v for k, v in split.items()},
               "peak_bytes": peak, "forward_stages_ms": stages,
               "eval_backbone_ms": eval_backbone_ms,
               "first_loss": losses[0], "last_loss": losses[-1],
@@ -787,59 +947,15 @@ def phase_train(seed):
     log("train", f"b{b} x {n} train step, full width, TF32 off: median {record['step_ms']:.6f} ms "
                  f"over 10 steps after 3 warm-ups (host clock, synchronized), "
                  f"{record['samples_per_s']:.3f} samples/s; split (median ms, CUDA events): "
-                 + ", ".join(f"{k} {statistics.median(v):.6f}" for k, v in split.items())
+                 + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
                  + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     # b1, card against CPU, from the same weights and cloud; the CPU's step
     # twice, with all its threads and with half, for its own spread
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    _, _, cpu_model = build(CFG_EGO, device="cpu")
     one = {k: v[:1] for k, v in host_batch.items()}
-    cpu_initial = {k: v.cpu() for k, v in initial.items()}
-    threads = torch.get_num_threads()
-    t0 = time.perf_counter()
-    cpu = _one_step(cpu_model, cpu_initial, cfg, one)
-    cpu_s = time.perf_counter() - t0
-    torch.set_num_threads(max(1, threads // 2))
-    cpu_half = _one_step(cpu_model, cpu_initial, cfg, one)
-    torch.set_num_threads(threads)
-    gpu = _one_step(model, initial, cfg, _on(one, "cuda"))
-    torch.use_deterministic_algorithms(False)
-    torch.backends.cudnn.deterministic = False
-
-    def errors(got):
-        """Loss rel, gradient errors by group, running statistics by group."""
-        stats = {}
-        for name, v in cpu[2].items():
-            if ".running_" in name:
-                group = name.split(".")[0]
-                stats[group] = max(stats.get(group, 0.0), (got[2][name].cpu() - v).abs().max().item())
-        return abs(got[0] - cpu[0]) / abs(cpu[0]), grad_errors(got[1], cpu[1], zero_names), stats
-
-    loss_rel, errs, stats_err = errors(gpu)
-    loss_spread, spread, stats_spread = errors(cpu_half)
-    log("train", f"b1 CPU step with {threads} threads ({cpu_s:.1f} s) against {max(1, threads // 2)}: "
-                 f"loss rel {loss_spread:.3e}, gradients by group {spread}, running statistics "
-                 f"{stats_spread}")
-    limits = {"loss": max(LOSS_RTOL, SPREAD_FACTOR * loss_spread)}
-    for group, d in errs.items():
-        for key, (err, _) in d.items():
-            base = GRAD_ZERO_ATOL if key == "zero_grad" else GRAD_RTOL
-            limits[f"{group} {key}"] = (err, max(base, SPREAD_FACTOR * spread[group][key][0]))
-        limits[f"{group} running statistics"] = (
-            stats_err[group], max(STATS_ATOL, SPREAD_FACTOR * stats_spread[group]))
-    limits["loss"] = (loss_rel, limits["loss"])
-    log("train", f"b1 card vs CPU: loss {gpu[0]} vs {cpu[0]}; gradients after the clip, by "
-                 f"group, largest error over the leaf's largest |g| (biases in front of a BN: "
-                 f"over the model's largest |g|): {errs}; running statistics max abs err by "
-                 f"group {stats_err}; each against its limit, max(tolerance, {SPREAD_FACTOR} x "
-                 f"the CPU's spread): " + ", ".join(f"{k} {e:.3e} <= {lim:.3e}"
-                                                   for k, (e, lim) in limits.items()))
-    bad = [f"{k} {e} > {lim}" for k, (e, lim) in limits.items() if e > lim]
-    if bad:
-        raise AssertionError("b1 card vs CPU outside tolerance: " + "; ".join(bad))
-
+    gpu, cpu, cpu_half, cpu_s = card_and_cpu_steps(model, CFG_EGO, cfg, initial, one)
+    limits, loose = hold_to_cpu_spread("train", "", gpu, cpu, cpu_half, zero_names, cpu_s)
+    record["card_vs_cpu"] = {"limits": limits, "loosely_held": loose}
     return launches, record
 
 
@@ -882,13 +998,6 @@ def sender_points(rng, b, n):
     return {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask)}
 
 
-def dynamic_mask(cls_prob, mask):
-    """The corrector's moved points: max probability over 0.3, argmax the
-    dynamic class, valid."""
-    best, idx = cls_prob.max(-1)
-    return (best > 0.3) & (idx == 2) & mask
-
-
 def sender_stages(model):
     """The sender's eval forward cut at module boundaries, the corrector
     split into its conv_input, its point work (point head, resample,
@@ -896,7 +1005,7 @@ def sender_stages(model):
     c = model.corrector
 
     def points(d):
-        corrected, prob, flow = c.correct_points(d, d["bev_img"])
+        corrected, prob, flow, _ = c.correct_points(d, d["bev_img"])
         return dict(d, corrected=corrected, points_cls_prob=prob, points_flow3d=flow)
 
     stages = serving_stages(model)
@@ -910,20 +1019,45 @@ def sender_stages(model):
 
 def corrector_decisions(model, batch, out):
     """The corrector's discrete decisions per point, recomputed from its
-    outputs with its own arithmetic: whether the point moves, and the pixel
-    (floor of its possibly moved coords) where its features are sampled and
-    scattered. Also how close each decision is to its boundary: the top two
-    class probabilities' gap, the max probability's distance from 0.3, and
-    the moved coords' distance from a pixel border."""
+    outputs by its own ``move_points``: whether the point moves, and the
+    pixel (floor of its possibly moved coords) where its features are
+    sampled and scattered. Also how close each decision is to its boundary:
+    the top two class probabilities' gap, the max probability's distance
+    from the threshold, and the moved coords' distance from a pixel
+    border."""
     c = model.corrector
     prob, flow = out["points_cls_prob"], out["points_flow3d"]
-    dyn = dynamic_mask(prob, batch["points_mask"])
-    xy = batch["points"][..., 0:2]
-    coord = (torch.where(dyn[..., None], xy + flow[..., 0:2], xy) - c.pc_range[:2]) / c.pixel_size
+    dyn, moved = type(c).move_points(c, batch["points"][..., 0:2], prob, flow, batch["points_mask"])
+    coord = (moved - c.pc_range[:2]) / c.pixel_size
     top2 = prob.topk(2, dim=-1).values
-    margin = torch.stack([top2[..., 0] - top2[..., 1], (top2[..., 0] - 0.3).abs(),
-                          torch.where(dyn, (coord - coord.round()).abs().min(-1).values, 1.0)], -1)
-    return torch.cat([dyn[..., None].float(), coord.floor()], -1).cpu(), margin.cpu()
+    margin = torch.stack([top2[..., 0] - top2[..., 1], (top2[..., 0] - c.thresh_point_cls_prob).abs(),
+                          torch.where(dyn[..., 0], (coord - coord.round()).abs().min(-1).values, 1.0)],
+                         -1)
+    return torch.cat([dyn.float(), coord.floor()], -1).cpu(), margin.cpu()
+
+
+def pin_decisions(model, ref):
+    """Make ``model``'s corrector take the decisions of the step ``ref``
+    (``_one_step``'s) wherever its own differ: the point moves or stays as in
+    ``ref``, and a moved point lands where ``ref``'s flow put it, the
+    gradient to its own flow kept. Steps of two devices then take every
+    decision alike and differ by their rounding alone. Undo with
+    ``del model.corrector.move_points``."""
+    c = model.corrector
+    dev = c.pixel_size.device
+    ref_dyn = ref["decisions"][..., 0:1].bool().to(dev)
+    ref_pixel = ref["decisions"][..., 1:3].to(dev)
+    ref_flow = ref["flow"][..., 0:2].to(dev)
+
+    def move_points(xy, cls_prob, flow, pmask):
+        dyn, moved = type(c).move_points(c, xy, cls_prob, flow, pmask)
+        apart = (dyn != ref_dyn) | (((moved - c.pc_range[:2]) / c.pixel_size).floor()
+                                    != ref_pixel).any(-1, keepdim=True)
+        own = flow[..., 0:2]
+        pinned = torch.where(ref_dyn, xy + ref_flow + (own - own.detach()), xy)
+        return torch.where(apart, ref_dyn, dyn), torch.where(apart, pinned, moved)
+
+    c.move_points = move_points
 
 
 def _sender_card_vs_cpu(name, cfg_path, sd, model, batch, pp, post_max):
@@ -1014,6 +1148,35 @@ def balance_seg_bias(model, sd, batch):
     model.load_state_dict(sd, strict=True)
 
 
+def b1_on_inputs(phase, what, feats, pids, h, w):
+    """B1 on inputs a model gave it: exact against its plain version, and
+    timed there beside its plain version, the library call and its bound.
+    Returns the record."""
+    from pcp_tpu_torch.ops import bev_scatter as bs
+
+    with torch.inference_mode():
+        err = _hold(bs.bev_scatter_max_sorted_cuda(feats, pids, h, w),
+                    bs.bev_scatter_max_sorted_plain(feats, pids, h, w), 0.0,
+                    f"{what} bev_scatter_max inputs: kernel vs its plain version")
+        kernel_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_cuda(feats, pids, h, w))
+        device_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_cuda(feats, pids, h, w), reps=5)
+        plain_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_plain(feats, pids, h, w))
+        zeros = torch.zeros((feats.shape[0], h * w + 1, feats.shape[2]), device=feats.device)
+        idx = pids.long()[..., None].expand(-1, -1, feats.shape[2])
+        library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, feats, "amax",
+                                                          include_self=True))
+        del zeros, idx
+    bytes_moved = feats.numel() * 4 + pids.numel() * 4 + feats.shape[0] * h * w * feats.shape[2] * 4
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, feats.numel() / F32_OPS_PER_S) * 1e3
+    log(phase, f"{what} bev_scatter_max inputs {tuple(feats.shape)} on {h}x{w}: max_abs_err {err} "
+               f"(exact equality required); kernel_ms {kernel_ms:.6f} (5 launches a timing: "
+               f"device_ms {device_ms:.6f}) plain_ms {plain_ms:.6f} library_ms {library_ms:.6f} "
+               f"(torch.scatter_reduce amax) bound_ms {bound_ms:.6f} ({bytes_moved} bytes)")
+    return {"shape": list(feats.shape), "grid": [h, w], "max_abs_err": err, "ms": kernel_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms}
+
+
 def run_sender(name, cfg_path, seed):
     """One sender at full width on the card. Returns (record, launches in one
     forward, the host batch, the counted forward's outputs)."""
@@ -1054,7 +1217,8 @@ def run_sender(name, cfg_path, seed):
             fbd["pred_boxes"]).all() or not fbd["pred_valid"].any(1).all():
         raise AssertionError(f"{name}: pred_boxes {tuple(fbd['pred_boxes'].shape)}, valid per "
                              f"cloud {fbd['pred_valid'].sum(1).tolist()}")
-    dyn = dynamic_mask(out["points_cls_prob"], batch["points_mask"])
+    dyn = model.corrector.move_points(batch["points"][..., 0:2], out["points_cls_prob"],
+                                      out["points_flow3d"], batch["points_mask"])[0][..., 0]
     moved, left = int(dyn.sum()), int((batch["points_mask"] & ~dyn).sum())
     log("exchange", f"{name}: the corrector moved {moved} valid points by their flow and left "
                     f"{left}; valid boxes per cloud {fbd['pred_valid'].sum(1).tolist()}")
@@ -1063,28 +1227,7 @@ def run_sender(name, cfg_path, seed):
 
     # B1 at the sender's shape, on the inputs the forward gave it
     (feats, pids, h, w), = seen
-    with torch.inference_mode():
-        err = _hold(bs.bev_scatter_max_sorted_cuda(feats, pids, h, w),
-                    bs.bev_scatter_max_sorted_plain(feats, pids, h, w), 0.0,
-                    f"{name}: bev_scatter_max kernel vs its plain version")
-        kernel_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_cuda(feats, pids, h, w))
-        device_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_cuda(feats, pids, h, w), reps=5)
-        plain_ms = cuda_ms(lambda: bs.bev_scatter_max_sorted_plain(feats, pids, h, w))
-        zeros = torch.zeros((feats.shape[0], h * w + 1, feats.shape[2]), device=feats.device)
-        idx = pids.long()[..., None].expand(-1, -1, feats.shape[2])
-        library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, feats, "amax",
-                                                          include_self=True))
-        del zeros, idx
-    bytes_moved = feats.numel() * 4 + pids.numel() * 4 + feats.shape[0] * h * w * feats.shape[2] * 4
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, feats.numel() / F32_OPS_PER_S) * 1e3
-    kernel = {"shape": list(feats.shape), "grid": [h, w], "max_abs_err": err, "ms": kernel_ms,
-              "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "library_ms": library_ms}
-    log("exchange", f"{name}: bev_scatter_max at the sender's shape {tuple(feats.shape)} on "
-                    f"{h}x{w}: max_abs_err {err} (exact equality required); kernel_ms "
-                    f"{kernel_ms:.6f} (5 launches a timing: device_ms {device_ms:.6f}) plain_ms "
-                    f"{plain_ms:.6f} library_ms {library_ms:.6f} (torch.scatter_reduce amax) "
-                    f"bound_ms {bound_ms:.6f} ({bytes_moved} bytes)")
+    kernel = b1_on_inputs("exchange", f"{name}: the forward's", feats, pids, h, w)
     del seen, feats, pids
 
     check = _sender_card_vs_cpu(name, cfg_path, sd, model, host, pp, post_max)
@@ -1271,6 +1414,272 @@ def phase_exchange(seed):
     return launches, record
 
 
+# ------------------------------------------------------ 7. sender training
+
+MAX_INSTANCES = 256  # the JAX dataset's default padding of instances_tf
+SENDER_INSTANCES = 48  # real instances a cloud
+SENDER_FG_SHARE = 0.2  # of a cloud's rows, on instances
+SENDER_TRAIN_STEPS = 6  # the loss curve: steps on one batch
+# the loss falls over SENDER_TRAIN_STEPS: the last under this share of the first
+SENDER_LOSS_DROP = 0.95
+CORRECTOR_TB = ("corrector_loss", "l_points_cls", "l_points_embed", "l_fg_offset", "l_locals_transl",
+                "l_locals_rot", "l_recon", "l_dtl_locals_feat")
+
+
+def sender_train_batch(rng, b, n, info):
+    """A sender's training batch as the JAX dataset pads it: 7-feature
+    points (x, y, z, i, t, sweep, inst) on ``realistic_points``, of which
+    SENDER_FG_SHARE lie on SENDER_INSTANCES instances a cloud (boxes 4.2 x
+    1.8 x 1.6 at random centres and yaws, gt rows in instance order, padded
+    to 500); a quarter of the instances move, their translation growing with
+    sweep age as ``tests/test_hunter_jr.py`` lays it out, and their older
+    points lie where the motion left them, so that ``instances_tf`` (padded
+    to MAX_INSTANCES with zeros) brings them together; background points
+    are on the last sweep; the last SENDER_PAD rows are padding."""
+    s = NUM_SWEEPS
+    pts = realistic_points(rng, b, n, 7)
+    inst = np.full((b, n), -1, np.int64)
+    sweep = np.full((b, n), s - 1, np.int64)
+    tf = np.zeros((b, MAX_INSTANCES, s, 4, 4), np.float32)
+    tf[:, :SENDER_INSTANCES] = np.eye(4, dtype=np.float32)
+    gt = np.zeros((b, 500, 8), np.float32)
+    n_fg = int(SENDER_FG_SHARE * (n - SENDER_PAD))
+    lo, hi = info.point_cloud_range[0] + 5, info.point_cloud_range[3] - 5
+    for i in range(b):
+        centres = rng.uniform(lo, hi, (SENDER_INSTANCES, 2))
+        yaw = rng.uniform(-np.pi, np.pi, SENDER_INSTANCES)
+        gt[i, :SENDER_INSTANCES, 0:2] = centres
+        gt[i, :SENDER_INSTANCES, 2] = -1.0
+        gt[i, :SENDER_INSTANCES, 3:6] = [4.2, 1.8, 1.6]
+        gt[i, :SENDER_INSTANCES, 6] = yaw
+        gt[i, :SENDER_INSTANCES, 7] = 1
+        rows = rng.choice(n - SENDER_PAD, size=n_fg, replace=False)
+        ids = rng.integers(0, SENDER_INSTANCES, n_fg)
+        local = rng.uniform(-0.5, 0.5, (n_fg, 2)) * [4.2, 1.8]
+        c, sn = np.cos(yaw[ids]), np.sin(yaw[ids])
+        pts[i, rows, 0] = centres[ids, 0] + c * local[:, 0] - sn * local[:, 1]
+        pts[i, rows, 1] = centres[ids, 1] + sn * local[:, 0] + c * local[:, 1]
+        pts[i, rows, 2] = rng.uniform(-1.8, -0.2, n_fg)
+        inst[i, rows] = ids
+        sweep[i, rows] = rng.integers(0, s, n_fg)
+        for k in range(s):
+            tf[i, 0:SENDER_INSTANCES:4, k, 0, 3] = 0.2 * (s - 1 - k)
+        moving = ids % 4 == 0
+        pts[i, rows[moving], 0] -= 0.2 * (s - 1 - sweep[i, rows[moving]])
+    pts[..., 4] = 1.0 - sweep / (s - 1)
+    pts[..., 5] = sweep
+    pts[..., 6] = inst
+    mask = np.ones((b, n), bool)
+    mask[:, -SENDER_PAD:] = False
+    return {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask),
+            "gt_boxes": torch.from_numpy(gt), "instances_tf": torch.from_numpy(tf)}
+
+
+def _sender_train_card_vs_cpu(name, cfg_path, cfg, model, sd, host_batch):
+    """One b1 train step from the seeded weights ``sd`` on the card against
+    the CPU's (``card_and_cpu_steps``, whose later steps take the CPU's
+    corrector decisions). Each decision the card or the CPU at half its
+    threads would have taken apart from the CPU's must lie, on both sides,
+    within its band of the boundary: DECISION_BAND or SPREAD_FACTOR times
+    the CPU's own spread of the quantity that decides it (probabilities;
+    flow over the pixel size), whichever is larger. Then every quantity is
+    held as phase 5 holds the ego's (``hold_to_cpu_spread``)."""
+    from pcp_tpu_torch.train.train_state import biases_before_bn
+
+    one = {k: v[:1] for k, v in host_batch.items()}
+    gpu, cpu, cpu_half, cpu_s = card_and_cpu_steps(model, cfg_path, cfg, sd, one)
+    mask = cpu["mask"]
+    d_prob = (cpu_half["prob"] - cpu["prob"])[mask].abs().max().item()
+    d_coord = ((cpu_half["flow"] - cpu["flow"])[..., 0:2]
+               / model.corrector.pixel_size.cpu())[mask].abs().max().item()
+    band = torch.tensor([max(DECISION_BAND, SPREAD_FACTOR * d_prob)] * 2
+                        + [max(DECISION_BAND, SPREAD_FACTOR * d_coord)])
+    apart = {}
+    for side, other in (("card", gpu), ("cpu_threads", cpu_half)):
+        flips = (other["decisions"] != cpu["decisions"]).any(-1) & mask
+        margin = torch.minimum(other["margin"], cpu["margin"])[flips]
+        if not (margin < band).any(-1).all():
+            raise AssertionError(f"{name}: a corrector decision of the {side} step differs from the "
+                                 f"CPU's away from its boundary: bands {band.tolist()}, margins "
+                                 f"{margin.tolist()}")
+        apart[side] = int(flips.sum())
+    log("sender_train", f"{name}: b1 step, corrector decisions that would differ from the CPU's "
+                        f"and were pinned to them: {apart}, each within its band of the boundary "
+                        f"(probability, probability, pixel: {band.tolist()})")
+    limits, loose = hold_to_cpu_spread("sender_train", f"{name}: ", gpu, cpu, cpu_half,
+                                       biases_before_bn(model), cpu_s)
+    return {"limits": limits, "loosely_held": loose, "decisions_pinned": apart,
+            "decision_bands": band.tolist(), "cpu_s": cpu_s}
+
+
+def run_sender_training(name, cfg_path, seed):
+    """One sender trained at full width on the card. Returns (its record,
+    launches of each kernel in one train step)."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg, info, model = build(cfg_path, device="cuda")
+    b, n = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), SENDER_N
+    host = sender_train_batch(np.random.default_rng(seed + 5), b, n, info)
+    batch = _on(host, "cuda")
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model,
+                                   total_iters_each_epoch=SENDER_TRAIN_STEPS, total_epochs=1)
+    state = create_train_state(model, optimizer, seed)
+    fg = int(((host["points"][..., 6] >= 0) & host["points_mask"]).sum())
+    log("sender_train", f"{name}: {sum(p.numel() for p in model.parameters())} parameters; b{b} x "
+                        f"{n} points ({int(host['points_mask'].sum())} valid, {fg} on instances), "
+                        f"instances_tf {tuple(host['instances_tf'].shape)} "
+                        f"({b * MAX_INSTANCES * NUM_SWEEPS} dense locals), gt_boxes "
+                        f"{tuple(host['gt_boxes'].shape)}; adam_onecycle, LR {cfg.OPTIMIZATION.LR}")
+
+    # the loss curve on one batch, every launch counted; the scatter's inputs
+    # of the first step kept for the kernel check below
+    seen, scatter = [], model.vfe.scatter_max
+
+    def spy(feats, pids, h, w):
+        if not seen:
+            seen.append((feats.detach(), pids, h, w))
+        return scatter(feats, pids, h, w)
+
+    model.vfe.scatter_max = spy
+    step = make_train_step(model, optimizer)
+    bs.reset_launches()
+    curve = [step(batch) for _ in range(SENDER_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    counts = dict(bs.launches)
+    model.vfe.scatter_max = scatter
+    losses = [loss.item() for loss, _ in curve]
+    tbs = [{k: v.item() for k, v in tb.items()} for _, tb in curve]
+    log("sender_train", f"{name}: loss curve " + " ".join(f"{v:.6f}" for v in losses)
+                        + f"; launches {counts} in {SENDER_TRAIN_STEPS} steps, step count {state.step}")
+    log("sender_train", f"{name}: corrector tb, first -> last step: " + ", ".join(
+        f"{k} {tbs[0][k]:.6f} -> {tbs[-1][k]:.6f}" for k in CORRECTOR_TB))
+    bad = [k for tb in tbs for k, v in tb.items() if not np.isfinite(v)]
+    if bad or set(CORRECTOR_TB) - set(tbs[0]):
+        raise AssertionError(f"{name}: tb keys not finite {sorted(set(bad))} or missing "
+                             f"{sorted(set(CORRECTOR_TB) - set(tbs[0]))}")
+    if not np.isfinite(losses).all() or not losses[-1] < SENDER_LOSS_DROP * losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    if counts != {k: SENDER_TRAIN_STEPS * int(k == "bev_scatter_max") for k in counts}:
+        raise AssertionError(f"{name}: expected {SENDER_TRAIN_STEPS} launches of bev_scatter_max "
+                             f"and none of the others, got {counts}")
+    launches = {k: v // SENDER_TRAIN_STEPS for k, v in counts.items()}
+
+    # B1 on the inputs the sender's own training step gave it
+    (feats, pids, h, w), = seen
+    kernel = b1_on_inputs("sender_train", f"{name}: the training step's", feats, pids, h, w)
+    del seen, feats, pids
+
+    step_ms, split, peak = time_train_steps(model, optimizer, batch)
+    profile = trace_train_step(name, model, optimizer, batch)
+    # what the backward holds: memory allocated after a training forward,
+    # beyond the model and its optimizer state
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = model(batch)
+    torch.cuda.synchronize()
+    saved = torch.cuda.memory_allocated() - before
+    del out
+    stages = stage_ms(sender_train_stages(model), batch)
+    log("sender_train", f"{name}: b{b} training forward by stage (median ms of 10, CUDA events "
+                        "between stages): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items())
+                        + f"; memory held for the backward after one forward {saved} bytes")
+    record = {"config": str(Path(cfg_path).relative_to(REPO)), "batch": b, "points": n,
+              "instances": [SENDER_INSTANCES, MAX_INSTANCES], "step_ms": step_ms,
+              "samples_per_s": b / step_ms * 1e3, **{f"{k}_ms": v for k, v in split.items()},
+              "peak_bytes": peak,
+              "saved_for_backward_bytes": saved, "forward_stages_ms": stages, "profile": profile,
+              "losses": losses, "launches_per_step": launches, "bev_scatter_max": kernel}
+    log("sender_train", f"{name}: b{b} x {n} train step, full width, TF32 off: median "
+                        f"{record['step_ms']:.6f} ms over 10 steps after 3 warm-ups (host clock, "
+                        f"synchronized), {record['samples_per_s']:.3f} samples/s; split (median ms, "
+                        "CUDA events): " + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+                        + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB)")
+
+    # card against CPU at b1, from seeded weights (random BN affine and
+    # statistics: at the initial BN bias of 0, a local of one point sits on
+    # a ReLU kink of the shape encoder)
+    sd = seeded_state_dict(model, seed)
+    record["card_vs_cpu"] = _sender_train_card_vs_cpu(name, cfg_path, cfg, model, sd, host)
+    del model, optimizer, state, batch
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def trace_train_step(name, model, optimizer, batch):
+    """A ``torch.profiler`` trace of one train step (forward, backward,
+    optimizer): the top device operations, the idle share, the longest
+    gaps. Returns the summary."""
+    from pcp_tpu_torch.bench import short_name, trace, trace_summary
+    from pcp_tpu_torch.train.train_state import take_train_step
+
+    summary = trace_summary(trace(lambda: take_train_step(model, optimizer, batch)), top=10, gaps=3)
+    log("sender_train", f"{name}: one train step traced: window {summary['window_ms']:.6f} ms, "
+                        f"device busy {summary['device_busy_ms']:.6f} ms in {summary['device_ops']} "
+                        f"operations, idle share {summary['device_idle_share']:.6f}; top device "
+                        "operations: " + "; ".join(f"{op['ms']:.6f} ms in {op['calls']} calls "
+                                                  f"{short_name(op['name'], 70)}"
+                                                  for op in summary["top_ops"]))
+    return summary
+
+
+def sender_train_stages(model):
+    """The sender's training forward cut at module boundaries, the corrector
+    split into its conv_input, its point work (point head, resample,
+    mean-scatter), its losses (object head, targets, CE+Lovász, the hard
+    miners) and its weightor; the head with its targets, then the loss."""
+    c, head = model.corrector, model.dense_head
+
+    def points(d):
+        corrected, _, _, point = c.correct_points(d, d["bev_img"])
+        return dict(d, corrected=corrected, point=point)
+
+    return [("vfe", model.vfe), ("map_to_bev", model.map_to_bev),
+            ("backbone_2d", model.backbone_2d),
+            ("corrector.conv_input", lambda d: dict(d, bev_img=c.conv_input(d["spatial_features_2d"]))),
+            ("corrector.points", points),
+            ("corrector.losses", lambda d: dict(d, corrector_loss=c.train_loss(d, *d["point"])[0])),
+            ("corrector.weightor", lambda d: dict(d, spatial_features_2d=c.blend(d["bev_img"],
+                                                                                d["corrected"]))),
+            ("dense_head", head),
+            ("loss", lambda d: dict(d, loss=head.get_loss(d["head_preds"], d["head_targets"])[0]
+                                    + d["corrector_loss"]))]
+
+
+def phase_sender_train(seed):
+    """Phase 7: the car and the RSU trained on the card. Returns (launches of
+    each kernel in one sender train step, the record)."""
+    record, launches = {}, None
+    for name, cfg_path in (("car", CFG_CAR), ("rsu", CFG_RSU)):
+        record[name], counts = run_sender_training(name, cfg_path, seed)
+        if launches not in (None, counts):
+            raise AssertionError(f"launches differ between senders: {launches} vs {counts}")
+        launches = counts
+    return launches, record
+
+
+# ------------------------------------------------------------ 8. bench
+
+def phase_bench(card):
+    """The port's bench (``pcp_tpu_torch/bench.py``) with the trained
+    checkpoint: its profile lines, and its result line, which ``main``
+    prints before the last three. Every timed forward launches
+    ``bev_scatter_max`` once."""
+    from pcp_tpu_torch import bench
+
+    result = bench.run(log=lambda msg: log("bench", msg), card=card)
+    launches = result.pop("launches")
+    expected = bench.REPS * bench.ITERS + 1
+    if launches != {k: expected * int(k == "bev_scatter_max") for k in launches}:
+        raise AssertionError(f"bench: expected {expected} launches of bev_scatter_max in the timed "
+                             f"run, got {launches}")
+    log("bench", f"timed run: {bench.REPS} passes of {bench.ITERS} b{bench.BATCH} batches, kernel "
+                 f"launches {launches}; valid boxes per cloud {result['valid_boxes_per_cloud']}")
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1284,15 +1693,22 @@ def main(argv=None):
     card = phase_device()
     phase_build()
     records = phase_kernels(args.seed)
-    for kernel, count in phase_slice(args.seed).items():
+    slice_launches, trained = phase_slice(args.seed)
+    for kernel, count in slice_launches.items():
         records[kernel]["launches"] = count
     train_launches, train = phase_train(args.seed)
     sender_launches, senders = phase_exchange(args.seed)
+    sender_train_launches, sender_train = phase_sender_train(args.seed)
     for kernel, record in records.items():
         record["launches_per_train_step"] = train_launches.get(kernel)
         record["launches_per_sender_forward"] = sender_launches[kernel]
+        record["launches_per_sender_train_step"] = sender_train_launches[kernel]
+    bench = phase_bench(card)
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
-    print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders}))
+    print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
+    print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
+                      "sender_train": sender_train, "trained_ego": trained,
+                      "bench_profile": bench["profile"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

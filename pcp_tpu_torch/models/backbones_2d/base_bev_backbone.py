@@ -36,7 +36,7 @@ class BaseBEVBackbone(nn.Module):
         upsample_strides = list(model_cfg.get("UPSAMPLE_STRIDES", []))
         num_upsample_filters = list(model_cfg.get("NUM_UPSAMPLE_FILTERS", []))
         if len(upsample_strides) > len(layer_nums):
-            raise NotImplementedError("BACKBONE_2D extra deblock is not ported yet")
+            raise NotImplementedError("BACKBONE_2D extra deblock is not ported yet (ROADMAP A11)")
 
         c_in = [input_channels] + num_filters[:-1]
         self.blocks = nn.ModuleList()

@@ -1,5 +1,6 @@
 """BEV-level modules: counterpart of ``pcp_tpu/models/bev_layers``. Only the
-HunterJr corrector's serving half is ported (ROADMAP A7)."""
+HunterJr corrector is ported (serving and training, ROADMAP A7 and A7b); the
+DiscoNet modules and the oracle corrector come with ROADMAP A9."""
 
 
 def build_corrector(cfg, info, num_bev_features):

@@ -1,9 +1,10 @@
-"""HunterJr support ops for serving.
+"""HunterJr support ops.
 
 Counterpart of ``pcp_tpu/models/bev_layers/hunter_toolbox.py``: bilinear
 sampling of the BEV image at point positions, mean-scatter of point features
-back to the BEV, and the MLP stacks of the point head. ``quat2mat`` and the
-hard-mined regression loss belong to training (ROADMAP A7b).
+back to the BEV, the MLP stacks of the point and object heads, and for
+training the unnormalised quaternion to rotation matrix and the hard-mined
+regression loss.
 
 The BEV image is taken channels-last, (B, H, W, C), as the JAX package takes
 it: a corner gather then reads rows of C contiguous floats.
@@ -101,3 +102,47 @@ class MLP(nn.Sequential):
         for layer in self:
             x = layer(x, valid) if isinstance(layer, MaskedBatchNorm) else layer(x)
         return x
+
+
+def quat2mat(quat):
+    """(..., 4) quaternion [x, y, z, w] -> (..., 3, 3) rotation matrix, NOT
+    normalised first: the reference does not normalise, and training follows
+    it."""
+    x, y, z, w = quat[..., 0], quat[..., 1], quat[..., 2], quat[..., 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    rows = torch.stack([w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz,
+                        2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx,
+                        2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2], dim=-1)
+    return rows.reshape(quat.shape[:-1] + (3, 3))
+
+
+def hard_mining_regression_loss(loss_all, mask_positive, valid, neg_to_pos_ratio=1,
+                                num_negative_when_no_positive=100):
+    """Mean loss of the valid positives plus the mean of the
+    ``num_pos * neg_to_pos_ratio`` largest losses of the valid negatives
+    (``num_negative_when_no_positive`` of them, alone, when there is no
+    positive), with the JAX package's static shapes: the negatives are ranked
+    by a stable descending sort (equal losses keep index order, which decides
+    where the gradient goes) and the count becomes a rank mask. Counts stay on
+    the device; every division is by a float32 tensor."""
+    zero = loss_all.new_zeros(())
+    loss_all = torch.where(valid, loss_all, zero)
+    pos = mask_positive & valid
+    neg = ~mask_positive & valid
+    num_pos = pos.sum()
+    num_neg = neg.sum()
+    loss_pos_mean = torch.where(pos, loss_all, zero).sum() / num_pos.clamp(min=1).to(loss_all.dtype)
+
+    neg_losses = torch.where(neg, loss_all, loss_all.new_full((), float("-inf")))
+    order = torch.sort(-neg_losses, stable=True).indices
+    ranked = neg_losses[order]
+    ranked = torch.where(torch.isfinite(ranked), ranked, zero)
+    ranks = torch.arange(loss_all.shape[0], device=loss_all.device)
+    k = torch.where(num_pos > 0, torch.minimum(num_pos * neg_to_pos_ratio, num_neg),
+                    num_neg.clamp(max=num_negative_when_no_positive))
+    top_neg_mean = (torch.where(ranks < k, ranked, zero).sum()
+                    / k.clamp(min=1).to(loss_all.dtype))
+    with_pos = loss_pos_mean + torch.where(num_neg > 0, top_neg_mean, zero)
+    return torch.where(num_pos > 0, with_pos, top_neg_mean)

@@ -5,10 +5,11 @@ run in order on a batch dict (``points`` (B, N, C) float32, ``points_mask``
 (B, N) bool; in training also ``gt_boxes`` (B, M, 8), zero rows for padding).
 In eval mode the result carries fixed-shape ``final_box_dicts`` and, with a
 HunterJr corrector (the car and RSU senders), its ``points_cls_prob`` and
-``points_flow3d``; in training mode (``model.train()``) it carries ``loss``,
-the CenterHead's loss, and ``tb_dict``. The corrector's loss comes with its
-training (ROADMAP A7b: ``model.train()`` raises on a sender until then), the
-distillation loss with DiscoNet (A9), which ``build_network`` refuses.
+``points_flow3d``; in training mode (``model.train()``) it carries ``loss``
+and ``tb_dict``: the CenterHead's loss plus, on a sender whose batch holds
+``instances_tf`` (B, Ni, S, 4, 4), the corrector's (``corrector_loss`` and
+its terms in the tb). The distillation loss comes with DiscoNet (ROADMAP
+A9), which ``build_network`` refuses.
 """
 from .detector_template import Detector3DTemplate
 
@@ -19,6 +20,10 @@ class CenterPoint(Detector3DTemplate):
         for name in self.module_names:
             out = getattr(self, name)(out)
         if self.training:
-            out["loss"], out["tb_dict"] = self.dense_head.get_loss(out["head_preds"],
-                                                                   out["head_targets"])
+            loss, tb = self.dense_head.get_loss(out["head_preds"], out["head_targets"])
+            if "corrector_loss" in out:
+                loss = loss + out["corrector_loss"]
+                tb["corrector_loss"] = out["corrector_loss"]
+                tb.update(out["corrector_tb"])
+            out["loss"], out["tb_dict"] = loss, tb
         return out

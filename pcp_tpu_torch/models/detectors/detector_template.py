@@ -68,7 +68,7 @@ class Detector3DTemplate(nn.Module):
         known = {key for key, _ in MODULE_KEYS} | set(PLAIN_KEYS)
         extra = sorted(k for k, v in cfg.items() if v is not None and k not in known)
         if extra:
-            raise NotImplementedError(f"MODEL keys {extra} are not ported yet (ROADMAP A7-A11)")
+            raise NotImplementedError(f"MODEL keys {extra} are not ported yet (ROADMAP A9-A11)")
         if cfg.get("BF16", False):
             raise NotImplementedError("MODEL BF16 is not ported yet (ROADMAP A13)")
 

@@ -77,19 +77,40 @@ def create_train_state(model, optimizer, seed):
     return TrainState(model, optimizer)
 
 
+def take_train_step(model, optimizer, batch):
+    """One train step of ``model`` on ``batch``: zero the gradients, forward
+    in training mode, backward, optimizer step. Returns the forward's
+    outputs."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    out = model(batch)
+    out["loss"].backward()
+    optimizer.step()
+    return out
+
+
 def make_train_step(model, optimizer):
     """``train_step(batch) -> (loss, tb_dict)``, tensors on the model's
     device; the host does not wait for the card."""
 
     def train_step(batch):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        out = model(batch)
-        out["loss"].backward()
-        optimizer.step()
+        out = take_train_step(model, optimizer, batch)
         return out["loss"].detach(), {k: v.detach() for k, v in out["tb_dict"].items()}
 
     return train_step
+
+
+def biases_before_bn(model):
+    """Names of the conv biases that a BN follows: their gradient is 0 in
+    exact arithmetic."""
+    names = set()
+    for prefix, m in model.named_modules():
+        if isinstance(m, nn.Sequential):
+            kids = list(m.named_children())
+            for (name, a), (_, b) in zip(kids, kids[1:]):
+                if isinstance(a, nn.Conv2d) and a.bias is not None and isinstance(b, nn.BatchNorm2d):
+                    names.add(f"{prefix}.{name}.bias")
+    return names
 
 
 def make_eval_step(model):

@@ -18,12 +18,16 @@ from .checkpoint import save_checkpoint, save_latest_snapshot
 from .train_state import make_train_step
 
 def _to_device_batch(batch, device):
-    """A numpy batch dict as the ego model takes it, on ``device``: float32
-    points and gt boxes, the bool mask. (The senders' and DiscoNet's keys
-    come with their modules, ROADMAP A7 and A9.)"""
-    return {"points": torch.as_tensor(batch["points"], dtype=torch.float32, device=device),
-            "points_mask": torch.as_tensor(batch["points_mask"], device=device),
-            "gt_boxes": torch.as_tensor(batch["gt_boxes"], dtype=torch.float32, device=device)}
+    """A numpy batch dict as the model takes it, on ``device``: float32
+    points and gt boxes, the bool mask, and where the batch has them the
+    senders' ``instances_tf`` (B, Ni, S, 4, 4) and a teacher BEV
+    ``teacher_spatial_features_2d`` (B, C, H, W), both float32."""
+    dev = {"points": torch.as_tensor(batch["points"], dtype=torch.float32, device=device),
+           "points_mask": torch.as_tensor(batch["points_mask"], device=device)}
+    for key in ("gt_boxes", "instances_tf", "teacher_spatial_features_2d"):
+        if key in batch:
+            dev[key] = torch.as_tensor(batch[key], dtype=torch.float32, device=device)
+    return dev
 
 
 class AverageMeter:

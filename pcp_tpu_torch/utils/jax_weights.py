@@ -1,9 +1,9 @@
 """JAX (flax) variables -> the port's state dict.
 
 The inverse of ``pcp_tpu/utils/torch_converter.py::convert_centerpoint_state_dict``
-for the pillar CenterPoint and its HunterJr corrector (the point head and the
-weightor; the object head trains only, ROADMAP A7b): it takes ``{'params', 'batch_stats'}`` as numpy
-arrays and returns tensors under pcdet's names, ready for
+for the pillar CenterPoint and its HunterJr corrector (conv_input, the point
+head, the object head where the variables have one, the weightor): it takes
+``{'params', 'batch_stats'}`` as numpy arrays and returns tensors under pcdet's names, ready for
 ``load_state_dict(strict=True)``. :func:`tensors_from_jax_params` maps any
 tree shaped like ``params`` the same way (gradients, adam_onecycle's ``mu``
 and ``nu``) onto the parameters' names, so training state can be held leaf
@@ -132,6 +132,12 @@ def _corrector(sd, cp, cs):
     for name in ("local_feat_predictor", "seg", "reg_flow3d", "instance_embedding"):
         put_mlp(sd, f"corrector.point_head.{name}", cp["point_head"][name],
                 _sub(_sub(cs, "point_head"), name))
+    # a JAX init in eval mode never calls the object head, so eval-only
+    # variables have none; the port's object head then keeps its own weights
+    for name in ("points_shape_encoder", "local_feat_encoder", "local_tf_decoder"):
+        if name in cp.get("object_head", {}):
+            put_mlp(sd, f"corrector.object_head.{name}", cp["object_head"][name],
+                    _sub(_sub(cs, "object_head"), name))
     _put_conv(sd, "corrector.conv_weightor.0.0", cp["weightor_conv"]["conv"])
     _put_bn(sd, "corrector.conv_weightor.0.1", cp["weightor_conv"]["norm"],
             _sub(_sub(cs, "weightor_conv"), "norm"))

@@ -1,15 +1,14 @@
 """Full-width parity of the port's ego forward with the JAX package, with the
 committed trained checkpoint (results/bench_ckpt), b=1 and a few thousand
-points. Marked slow: the JAX full-grid compile on a CPU takes minutes. Run:
+points (about 40 s on a CPU, most of it the JAX full-grid compile). Run:
 
-    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_ckpt_parity.py -q -m slow
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_ckpt_parity.py -q
 """
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from pcp_tpu.config import CfgDict, cfg_from_yaml_file
@@ -23,7 +22,6 @@ from pcp_tpu_torch.utils.jax_weights import state_dict_from_jax_variables
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
 
-@pytest.mark.slow
 def test_full_width_forward_matches_with_trained_checkpoint():
     cfg = cfg_from_yaml_file(os.path.join(REPO, CFG_EGO), CfgDict())
     info = DatasetInfo.from_data_cfg(cfg.DATA_CONFIG, cfg.CLASS_NAMES)

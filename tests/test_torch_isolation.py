@@ -1,8 +1,11 @@
 """The port stands alone: no JAX, no flax/optax/orbax, nothing of pcp_tpu.
 
 Checked two ways: a fresh interpreter imports the package, builds the ego
-and car models on the CPU and imports the exchange's modules, and a scan of every import statement in the package, in
-the measurement scripts under tools_torch/ and in chip_smoke.py. The entry point defaults to the GPU and raises without one.
+and car models on the CPU, puts the car in training mode and imports the
+bench and the exchange's modules, and a scan of every import statement in
+the package (``pcp_tpu_torch/bench.py`` included), in the measurement
+scripts under tools_torch/ and in chip_smoke.py. The entry point defaults to
+the GPU and raises without one.
 """
 import ast
 import subprocess
@@ -25,6 +28,8 @@ def test_fresh_interpreter_loads_no_jax():
         "from pcp_tpu_torch.entry import CFG_CAR, build\n"
         "cfg, info, model = build(device='cpu')\n"
         "cfg, info, model = build(CFG_CAR, device='cpu')\n"
+        "model.train()\n"
+        "import pcp_tpu_torch.bench, pcp_tpu_torch.models.loss_fnc.lovasz\n"
         "import pcp_tpu_torch.exchange, pcp_tpu_torch.train.eval_utils\n"
         "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"

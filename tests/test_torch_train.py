@@ -31,11 +31,10 @@ from pcp_tpu.models.vfe.dynamic_pillar_vfe import DynamicPillarVFE as JaxVFE
 from pcp_tpu.train.optimization import build_optimizer as jax_build_optimizer
 from pcp_tpu.train.train_state import create_train_state as jax_create_train_state
 from pcp_tpu.train.train_state import make_train_step as jax_make_train_step
-from chip_smoke import biases_before_bn
 from pcp_tpu_torch.config import CfgDict as TorchCfgDict
 from pcp_tpu_torch.ops import bev_scatter
 from pcp_tpu_torch.train.optimization import build_optimizer
-from pcp_tpu_torch.train.train_state import TrainState, make_train_step
+from pcp_tpu_torch.train.train_state import TrainState, biases_before_bn, make_train_step
 from pcp_tpu_torch.utils.jax_weights import state_dict_from_jax_variables, tensors_from_jax_params
 from torch_port_helpers import (B, MODEL_CFG, OPTIM, build_pair, info_kwargs, jax_batch,
                                 make_train_batch, torch_batch)

@@ -99,8 +99,8 @@ def randomize_batch_stats(tree, rng):
 
 
 def build_pair(seed=0, model_cfg=None, batch_points=None, num_features=NUM_FEATURES):
-    """JAX model, its variables (numpy) and the port's CPU model holding the
-    same weights."""
+    """JAX model, its variables (numpy; an eval-mode init) and the port's
+    CPU model holding the same weights."""
     model_cfg = copy.deepcopy(model_cfg or MODEL_CFG)
     rng = np.random.default_rng(seed)
     info = info_kwargs(num_features)
@@ -115,8 +115,18 @@ def build_pair(seed=0, model_cfg=None, batch_points=None, num_features=NUM_FEATU
                  "batch_stats": randomize_batch_stats(init["batch_stats"], rng)}
     tmodel = build_torch(TorchCfgDict(model_cfg), num_class=1,
                          dataset_info=TorchInfo(**info), device="cpu")
-    tmodel.load_state_dict(state_dict_from_jax_variables(variables, model_cfg), strict=True)
+    load_eval_variables(tmodel, variables, model_cfg)
     return jmodel, variables, tmodel
+
+
+def load_eval_variables(tmodel, variables, model_cfg):
+    """Load JAX variables from an eval-mode init into the port's model. Such
+    variables have no HunterJr object head (only training calls it), so the
+    port's object head keeps its own weights; every other key must match."""
+    result = tmodel.load_state_dict(state_dict_from_jax_variables(variables, model_cfg),
+                                    strict=False)
+    assert not result.unexpected_keys, result.unexpected_keys
+    assert all(k.startswith("corrector.object_head.") for k in result.missing_keys), result.missing_keys
 
 
 B, N = 2, 2000
