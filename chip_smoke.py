@@ -90,11 +90,25 @@ exits non-zero:
 8. bench: ``pcp_tpu_torch/bench.py`` with the trained checkpoint (its
    profile lines, and its result line printed before the last three lines);
    the timed passes launch ``bev_scatter_max`` once a forward.
+9. pipeline: the ``SMOKE=1`` lately stages of
+   ``pcp_tpu_torch/workspace/synth_experiments.sh`` through the port's CLIs
+   (their ``main``), in ``build/pipeline``: the car and the RSU trained 2
+   epochs at 16384 points on the SMOKE world, both exchange passes, the ego
+   trained 2 epochs on the merged clouds, then the evaluations lately_sync,
+   lately_async and car. Each stage's seconds and kernel launches (every
+   launch count at 0 before it; it must launch ``bev_scatter_max`` and no
+   other kernel); for training the steps, the median data and step
+   milliseconds a batch, the losses (finite) and the device's idle share of
+   the traced steps; for the exchange the clouds written; for evaluations
+   mAP, NDS and recall (finite). B1 on the inputs of the ego's first
+   training step against its plain version (exact), timed there.
 
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
-``"sender_train"``, the trained ego's under ``"trained_ego"`` and the bench's
-profile under ``"bench_profile"``), the card as nvidia-smi names it, and
+``"sender_train"``, the trained ego's under ``"trained_ego"``, the bench's
+profile under ``"bench_profile"`` and phase 9's under ``"pipeline"``; each
+kernel's launches in each pipeline stage under ``"launches_in_pipeline"``),
+the card as nvidia-smi names it, and
 ``{"ok": true, "device": ...}``; the bench's line comes just before them.
 Without a CUDA device the script exits 1 and prints no result.
 """
@@ -1680,6 +1694,133 @@ def phase_bench(card):
     return result
 
 
+
+# ------------------------------------------------------------ 9. pipeline
+
+# the SMOKE=1 world, points and epochs of workspace/synth_experiments.sh:29-31
+PIPELINE_SYN = ("{'NUM_SCENES': 3, 'KEYFRAMES_PER_SCENE': 4, 'NUM_CARS': 12, 'NUM_PEDS': 4, "
+                "'WORLD': 'urban', 'NUM_PARKED': 8}")
+PIPELINE_NPTS, PIPELINE_EPOCHS, PIPELINE_WORKERS = 16384, 2, 4
+PIPELINE_CFGS = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_{}.yaml"
+
+
+def _pipeline_stages(root):
+    """(name, kind, CLI main, argv) of the SMOKE=1 lately stages, in order:
+    the lately stages of ``pcp_tpu_torch/workspace/synth_experiments.sh``,
+    with the three evaluations this phase runs."""
+    from pcp_tpu_torch.tools import test as test_cli
+    from pcp_tpu_torch.tools import train as train_cli
+    from pcp_tpu_torch.workspace import v2x_gen_exchange_database as genx
+
+    exch = str(root / "exchange_database")
+    common = ["DATA_CONFIG.USE_SYNTHETIC_DATA", "True",
+              "DATA_CONFIG.MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS),
+              "DATA_CONFIG.SYNTHETIC", PIPELINE_SYN, "DATA_CONFIG.MINI_TRAINVAL_STRIDE", "1",
+              "DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY", exch, "OPTIMIZATION.LR", "0.003"]
+    base = ["--batch_size", "4", "--extra_tag", "smoke", "--device", "cuda",
+            "--workers", str(PIPELINE_WORKERS), "--output_root", str(root)]
+
+    def ckpt(model):
+        out = root / "cfgs" / "v2x_sim_models" / f"v2x_pointpillar_basic_{model}" / "smoke"
+        return str(out / "ckpt" / f"checkpoint_epoch_{PIPELINE_EPOCHS}.pth")
+
+    def train(model, ratio):
+        return (f"train_{model}", "train", train_cli.main,
+                lambda: ["--cfg_file", PIPELINE_CFGS.format(model), *base,
+                         "--epochs", str(PIPELINE_EPOCHS), "--num_epochs_to_eval", "0",
+                         "--profile", "--set", *common,
+                         "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", str(ratio)])
+
+    def gen(agent):
+        return (f"gen_exchange_{agent}", "gen", genx.main,
+                lambda: ["--agent", agent, "--ckpt", ckpt(agent), "--synthetic", "--device",
+                         "cuda", "--workers", str(PIPELINE_WORKERS), "--set",
+                         "MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS), "SYNTHETIC", PIPELINE_SYN,
+                         "MINI_TRAINVAL_STRIDE", "1", "EXCHANGE_DATABASE_DIRECTORY", exch])
+
+    def ev(name, model, *extra):
+        return (f"eval_{name}", "eval", test_cli.main,
+                lambda: ["--cfg_file", PIPELINE_CFGS.format(model), *base, "--ckpt", ckpt(model),
+                         "--eval_tag", name, "--infer_time", "--set", *common,
+                         "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", "1", *extra])
+
+    return [train("car", 4), train("rsu", 1), gen("car"), gen("rsu"), train("ego", 1),
+            ev("lately_sync", "ego", "DATA_CONFIG.EXCHANGE_NOW", "True"),
+            ev("lately_async", "ego"), ev("car", "car")]
+
+
+def phase_pipeline():
+    """Phase 9: the SMOKE=1 lately pipeline through the port's CLIs on the
+    card, in ``build/pipeline``. Returns the record of each stage and B1's
+    check on the ego's training inputs."""
+    import shutil
+
+    from pcp_tpu_torch.models.vfe import dynamic_pillar_vfe as vfe_module
+    from pcp_tpu_torch.ops import bev_scatter as bs
+
+    root = REPO / "build" / "pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    record, seen = {}, []
+    scatter = vfe_module.bev_scatter_max_sorted
+
+    def spy(feats, pids, h, w):  # the ego's first training scatter, kept for B1's check
+        if not seen:
+            seen.append((feats.detach().clone(), pids.clone(), h, w))
+        return scatter(feats, pids, h, w)
+
+    for name, kind, main_fn, argv in _pipeline_stages(root):
+        vfe_module.bev_scatter_max_sorted = spy if name == "train_ego" else scatter
+        bs.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = main_fn(argv())
+            torch.cuda.synchronize()
+        finally:
+            vfe_module.bev_scatter_max_sorted = scatter
+        seconds = time.perf_counter() - t0
+        launches = dict(bs.launches)
+        rec = {"seconds": seconds, "launches": launches}
+        if launches["bev_scatter_max"] == 0 or sum(launches.values()) != launches["bev_scatter_max"]:
+            raise AssertionError(f"pipeline {name}: expected launches of bev_scatter_max only, "
+                                 f"got {launches}")
+        if kind == "train":
+            profile = json.loads((root / "cfgs" / "v2x_sim_models"
+                                  / f"v2x_pointpillar_basic_{name[6:]}" / "smoke" / "profile"
+                                  / "trace_summary.json").read_text())
+            rec.update(steps=out["steps"], data_ms=out["data_ms_median"],
+                       step_ms=out["step_ms_median"], losses=out["losses"],
+                       device_idle_share=profile["device_idle_share"],
+                       profile_window_ms=profile["window_ms"])
+            if not out["steps"] or not np.isfinite(out["losses"]).all():
+                raise AssertionError(f"pipeline {name}: losses {out['losses']}")
+            detail = (f"{out['steps']} steps, median data {out['data_ms_median']:.6f} ms and step "
+                      f"{out['step_ms_median']:.6f} ms a batch, losses "
+                      + " ".join(f"{v:.6f}" for v in out["losses"])
+                      + f"; traced steps: window {profile['window_ms']:.6f} ms, device idle share "
+                      f"{profile['device_idle_share']:.6f}")
+        elif kind == "gen":
+            rec["clouds"] = out
+            files = len(list((root / "exchange_database").glob("*.npz")))
+            if not all(out.values()) or not files:
+                raise AssertionError(f"pipeline {name}: wrote {out} clouds, {files} files")
+            detail = f"clouds broadcast {out}; {files} files in the exchange database"
+        else:
+            # infer_time leaves out the first two batches: a set of fewer has none
+            keys = ("mAP", "NDS", "recall/rcnn_0.3", "recall/rcnn_0.5", "recall/rcnn_0.7",
+                    "infer_time_ms_per_batch")
+            rec.update({k: float(out[k]) for k in keys if k in out})
+            if not all(np.isfinite(rec[k]) for k in keys[:5]):
+                raise AssertionError(f"pipeline {name}: results not finite {rec}")
+            detail = ", ".join(f"{k} {rec[k]:.6f}" for k in keys if k in rec)
+        record[name] = rec
+        log("pipeline", f"{name}: {seconds:.3f} s; {detail}; kernel launches {launches}")
+
+    (feats, pids, h, w), = seen
+    record["bev_scatter_max"] = b1_on_inputs("pipeline", "ego training step's", feats, pids, h, w)
+    log("pipeline", f"stages {len(record) - 1}, {sum(r['seconds'] for k, r in record.items() if k != 'bev_scatter_max'):.3f} s in all")
+    return record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1704,11 +1845,15 @@ def main(argv=None):
         record["launches_per_sender_forward"] = sender_launches[kernel]
         record["launches_per_sender_train_step"] = sender_train_launches[kernel]
     bench = phase_bench(card)
+    pipeline = phase_pipeline()
+    for kernel, record in records.items():
+        record["launches_in_pipeline"] = {name: rec["launches"][kernel]
+                                          for name, rec in pipeline.items() if "launches" in rec}
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
     print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
                       "sender_train": sender_train, "trained_ego": trained,
-                      "bench_profile": bench["profile"]}))
+                      "bench_profile": bench["profile"], "pipeline": pipeline}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,11 @@
 """pcp_tpu_torch: the PyTorch / CUDA port of pcp_tpu for NVIDIA Hopper GPUs.
 
-The lately-fusion ego CenterPoint: its serving forward (``entry.build``) and
-its training (``train/``).
+The lately-fusion ego CenterPoint and the car and RSU senders: serving
+(``entry.build``), training (``train/``), the V2X-Sim data pipeline on the
+synthetic world (``datasets/``, with the native host kernels of
+``native/``), the exchange database (``exchange/``) and the CLIs
+(``python -m pcp_tpu_torch.tools.train`` / ``.tools.test``,
+``python -m pcp_tpu_torch.workspace.v2x_gen_exchange_database``,
+``pcp_tpu_torch/workspace/synth_experiments.sh``).
 Importing the package builds nothing and needs no GPU.
 """

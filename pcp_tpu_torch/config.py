@@ -4,8 +4,10 @@ The configs under ``tools/cfgs/`` are shared by both packages. ``CfgDict`` is
 an attribute dict; ``cfg_from_yaml_file`` merges a YAML file into it and
 resolves ``_BASE_CONFIG_`` includes (loaded first, then overridden by their
 sibling keys), accepting paths relative to the repository root, the including
-file, or ``tools/`` as the reference writes them.
+file, or ``tools/`` as the reference writes them. ``cfg_from_list`` applies
+the CLIs' ``--set KEY.SUBKEY value`` pairs.
 """
+import ast
 import copy
 from pathlib import Path
 
@@ -97,3 +99,44 @@ def _resolve_bases(node, cfg_file):
     elif isinstance(node, list):
         for v in node:
             _resolve_bases(v, cfg_file)
+
+
+def cfg_from_list(cfg_list, config):
+    """Apply dotted overrides, e.g. ``['MODEL.VFE.NUM_FILTERS', '[64]']``. A
+    value is read with ``ast.literal_eval`` where it parses, else kept as a
+    string. A new key is added; a dict value is merged into the dict it
+    replaces; any other value must keep the type of the one it replaces
+    (or either side is None)."""
+    assert len(cfg_list) % 2 == 0, "--set expects KEY VALUE pairs"
+    for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_list = full_key.split(".")
+        d = config
+        for subkey in key_list[:-1]:
+            assert subkey in d, "NotFoundKey: %s" % subkey
+            d = d[subkey]
+        subkey = key_list[-1]
+        try:
+            value = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            value = v
+        if subkey not in d:
+            d[subkey] = value
+        elif isinstance(value, dict):
+            for sk, sv in value.items():
+                d[subkey][sk] = sv
+        else:
+            assert type(value) == type(d[subkey]) or d[subkey] is None or value is None, (
+                "type mismatch for %s: %s vs %s" % (full_key, type(value), type(d[subkey])))
+            d[subkey] = value
+    return config
+
+
+def log_config_to_file(cfg, pre="cfg", logger=None):
+    """Log every leaf of ``cfg`` as ``pre.KEY.SUBKEY: value``."""
+    for key, val in cfg.items():
+        if isinstance(val, CfgDict):
+            if logger is not None:
+                logger.info("----------- %s.%s -----------" % (pre, key))
+            log_config_to_file(val, pre=pre + "." + key, logger=logger)
+        elif logger is not None:
+            logger.info("%s.%s: %s" % (pre, key, val))

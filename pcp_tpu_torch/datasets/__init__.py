@@ -1,2 +1,36 @@
-"""Host-side data of the port: counterpart of ``pcp_tpu/datasets`` (so far
-the ego's reading of the exchange; the rest is ROADMAP A8)."""
+"""Host-side data of the port: counterpart of ``pcp_tpu/datasets``.
+
+The registry holds the V2X-Sim RSU, car and ego (lately-fusion) datasets;
+the early, late and DiscoNet ego datasets come with ROADMAP A9, KITTI,
+nuScenes and custom data with A11.
+"""
+from .dataset import DatasetTemplate
+from .loader import DataLoader
+from .v2x_sim.v2x_sim_dataset_car import V2XSimDataset_CAR
+from .v2x_sim.v2x_sim_dataset_ego import V2XSimDataset_EGO
+from .v2x_sim.v2x_sim_dataset_rsu import V2XSimDataset_RSU
+
+__all__ = {
+    "DatasetTemplate": DatasetTemplate,
+    "V2XSimDataset_RSU": V2XSimDataset_RSU,
+    "V2XSimDataset_CAR": V2XSimDataset_CAR,
+    "V2XSimDataset_EGO": V2XSimDataset_EGO,
+}
+NOT_PORTED = {"V2XSimDataset_EGO_EARLY": "A9", "V2XSimDataset_EGO_LATE": "A9",
+              "V2XSimDataset_EGO_DISCO": "A9", "KittiDataset": "A11",
+              "NuScenesDataset": "A11", "CustomDataset": "A11"}
+
+
+def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, workers=4,
+                     seed=None, logger=None, training=True, pin_memory=False):
+    """(dataset, loader, None): the config's dataset and a loader over it,
+    shuffled and dropping the last short batch in training. ``seed`` fixes
+    the order and every item's draws (``loader.py``)."""
+    name = dataset_cfg["DATASET"]
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP {NOT_PORTED[name]})")
+    dataset = __all__[name](dataset_cfg=dataset_cfg, class_names=class_names,
+                            root_path=root_path, training=training, logger=logger)
+    loader = DataLoader(dataset, batch_size=batch_size, shuffle=training, seed=seed,
+                        drop_last=training, num_workers=workers, pin_memory=pin_memory)
+    return dataset, loader, None

@@ -13,20 +13,15 @@ wrote. A sender writes, per keyframe and lidar:
 
 ``boxflow`` carries what the ego needs of the foreground (the mean scene
 flow of the points in each box) in 3 floats a box; readers prefer it. The
-host side stays in numpy float64, as the JAX package keeps it.
+host side stays in numpy float64, as the JAX package keeps it. Points in
+boxes are found by the native host kernel (``native/``), the route of the
+JAX package's exchange, source and ego dataset.
 """
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from ..ops.points_in_boxes import points_in_boxes
-
-
-def points_in_boxes_np(points_xyz, boxes):
-    """numpy in, numpy out: (N,) int64 first containing box, -1 if none."""
-    return points_in_boxes(torch.from_numpy(np.asarray(points_xyz, np.float32)),
-                           torch.from_numpy(np.asarray(boxes, np.float32))).numpy()
+from ..native import points_in_boxes_np
 
 
 def pool_box_flow(modar, foreground):

@@ -1,6 +1,6 @@
-"""Rotated BEV box overlap and IoU.
+"""Rotated BEV box overlap and IoU, and 3D IoU.
 
-Counterpart of ``boxes_overlap_bev`` / ``boxes_iou_bev`` in
+Counterpart of ``boxes_overlap_bev`` / ``boxes_iou_bev`` / ``boxes_iou3d`` in
 ``pcp_tpu/ops/rotated_iou.py``, with the same edge-clip algorithm so that
 pairs near an NMS threshold fall on the same side: the overlap's boundary is
 the part of A's edges inside B plus the part of B's edges inside A, and the
@@ -97,3 +97,18 @@ def boxes_iou_bev(boxes_a, boxes_b):
     area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return overlap / torch.clamp(area_a + area_b - overlap, min=1e-6)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """Pairwise 3D IoU, (..., N, M): the rotated BEV overlap times the
+    overlap of the z extents, over the union of the volumes."""
+    overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_max = (boxes_a[..., 2] + boxes_a[..., 5] * 0.5)[..., :, None]
+    a_min = (boxes_a[..., 2] - boxes_a[..., 5] * 0.5)[..., :, None]
+    b_max = (boxes_b[..., 2] + boxes_b[..., 5] * 0.5)[..., None, :]
+    b_min = (boxes_b[..., 2] - boxes_b[..., 5] * 0.5)[..., None, :]
+    overlap_h = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0.0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)

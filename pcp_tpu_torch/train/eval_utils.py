@@ -1,14 +1,96 @@
-"""Host-side exchange writer: counterpart of
-``pcp_tpu/train/eval_utils.py::make_exchange_writer`` and of the outputs
-``workspace/v2x_gen_exchange_database.py`` keeps for it."""
+"""Evaluation loop and the exchange writer.
+
+Counterpart of ``pcp_tpu/train/eval_utils.py``: ``eval_one_epoch`` runs the
+model over a loader in eval mode, turns the fixed-shape outputs into
+per-sample annotations (``generate_prediction_dicts``), counts the recall of
+the gt at 3D-IoU thresholds and runs the dataset's evaluation (the
+nuScenes-protocol mAP); ``make_exchange_writer`` broadcasts a sender's
+outputs into the exchange database.
+"""
+import time
+
 import numpy as np
 import torch
 
 from ..exchange.database import pool_box_flow
+from ..ops.rotated_iou import boxes_iou3d
+from .train_utils import AverageMeter, _to_device_batch
 
 
 def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _recall_counts(pred_boxes, pred_valid, gt_boxes, thresh_list):
+    """[number of gt, gt recalled at each threshold] over the batch: a gt
+    (a row of ``gt_boxes`` not all zero) is recalled when its best 3D IoU
+    with a valid predicted box exceeds the threshold."""
+    gt_valid = torch.any(gt_boxes[..., :7] != 0, dim=-1)
+    iou = boxes_iou3d(gt_boxes[..., :7], pred_boxes[..., :7])  # (B, G, P)
+    iou = torch.where(pred_valid[:, None, :], iou, 0.0)
+    best = iou.max(dim=2).values if iou.shape[2] else torch.zeros_like(gt_valid, dtype=iou.dtype)
+    counts = [gt_valid.sum()] + [((best > th) & gt_valid).sum() for th in thresh_list]
+    return torch.stack(counts).cpu().numpy()
+
+
+def eval_one_epoch(model, dataset, dataloader, class_names, logger=None,
+                   recall_thresh_list=(0.3, 0.5, 0.7), output_path=None, exchange_writer=None,
+                   infer_time=False):
+    """Returns (result_str, result_dict, det_annos). ``infer_time``: the
+    forward's time a batch, between CUDA events on the card (the host clock
+    on the CPU), the first two batches left out."""
+    model.eval()
+    device = next(model.parameters()).device
+    det_annos = []
+    recall_acc = np.zeros(1 + len(recall_thresh_list))
+    infer_meter = AverageMeter() if infer_time else None
+    warmup = 2
+    t0 = time.time()
+    with torch.inference_mode():
+        for i_batch, batch in enumerate(dataloader):
+            dev_batch = _to_device_batch(batch, device)
+            timed = infer_time and i_batch >= warmup
+            if timed and device.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = model(dev_batch)
+                end.record()
+                end.synchronize()
+                infer_meter.update(start.elapsed_time(end) / 1e3)
+            elif timed:
+                t_inf = time.perf_counter()
+                out = model(dev_batch)
+                infer_meter.update(time.perf_counter() - t_inf)
+            else:
+                out = model(dev_batch)
+            fbd = {k: _np(v) for k, v in out["final_box_dicts"].items()}
+            det_annos.extend(dataset.generate_prediction_dicts(batch, fbd, class_names))
+            if "gt_boxes" in dev_batch:
+                recall_acc += _recall_counts(out["final_box_dicts"]["pred_boxes"],
+                                             out["final_box_dicts"]["pred_valid"],
+                                             dev_batch["gt_boxes"], list(recall_thresh_list))
+            if exchange_writer is not None:
+                exchange_writer(batch, out)
+
+    n_samples = len(det_annos)
+    sec_per_example = (time.time() - t0) / max(n_samples, 1)
+    if logger is not None:
+        logger.info(f"eval: {n_samples} samples, {sec_per_example:.4f} s/sample")
+        if infer_meter is not None and infer_meter.count:
+            logger.info(f"infer_time: {infer_meter.avg * 1e3:.3f} ms/batch "
+                        f"({int(infer_meter.count)} batches)")
+
+    result_dict = {}
+    num_gt = max(recall_acc[0], 1)
+    for i, th in enumerate(recall_thresh_list):
+        result_dict[f"recall/rcnn_{th}"] = recall_acc[1 + i] / num_gt
+    result_str, metrics = dataset.evaluation(det_annos, class_names, eval_metric="nuscenes",
+                                             output_path=output_path)
+    result_dict.update(metrics)
+    result_dict["sec_per_example"] = sec_per_example
+    if infer_meter is not None and infer_meter.count:
+        result_dict["infer_time_ms_per_batch"] = infer_meter.avg * 1e3
+    return result_str, result_dict, det_annos
 
 
 def make_exchange_writer(exchange_db, bg_prob_thresh=0.3):

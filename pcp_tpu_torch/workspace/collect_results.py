@@ -1,0 +1,98 @@
+"""Collect the port's synthetic-world results into one table.
+
+Counterpart of ``workspace/collect_results.py`` for the rows the port
+produces (the lately-fusion rows and the car sender):
+
+    python -m pcp_tpu_torch.workspace.collect_results [tag] [--export] [--output_root DIR]
+
+Reads ``metrics.json`` under ``{output_root}/cfgs/v2x_sim_models/<cfg>/
+<train_tag>/eval/<eval_tag>/`` (default root ``output/torch``) and prints
+the markdown table. ``--export`` copies each row's ``metrics.json``, its eval
+log and its training log into ``results/{tag}_torch/{cfg}__{train_tag}__
+{eval_tag}/`` and writes ``matrix.md`` and ``matrix.json`` there.
+"""
+import argparse
+import json
+import shutil
+from pathlib import Path
+
+from ..config import ROOT_DIR
+
+EGO, CAR = "v2x_pointpillar_basic_ego", "v2x_pointpillar_basic_car"
+
+
+def rows(tag):
+    """(label, cfg, {column: (train_tag, eval_tag)}) of the table."""
+    return [("lately fusion (MoDAR, ours)", EGO,
+             {"sync": (tag, "lately_sync"), "async": (tag, "lately_async"),
+              "async w/o flow": (tag, "lately_async_noflow")}),
+            ("per-agent car detector (own-view GT: not comparable to the row above)", CAR,
+             {"sync": (tag, "car")})]
+
+
+def eval_dir(root, cfg, train_tag, eval_tag):
+    return root / "cfgs" / "v2x_sim_models" / cfg / train_tag / "eval" / eval_tag
+
+
+def read_metrics(root, cfg, train_tag, eval_tag):
+    path = eval_dir(root, cfg, train_tag, eval_tag) / "metrics.json"
+    return json.loads(path.read_text()) if path.exists() else None
+
+
+def table(root, tag):
+    """(markdown lines, {label: {column: metrics or None}})."""
+    lines = ["| collab method | sync mAP | async mAP | async w/o flow | NDS[ATE,ASE,AOE] (sync) "
+             "| recall@0.3 (sync) |", "|---|---|---|---|---|---|"]
+    out = {}
+    for label, cfg, cols in rows(tag):
+        res = {col: read_metrics(root, cfg, *spec) for col, spec in cols.items()}
+        out[label] = res
+
+        def fmt(col):
+            m = res.get(col)
+            return "—" if m is None else f"{100 * m['mAP']:.1f}"
+
+        sync = res.get("sync")
+        nds = "—" if sync is None else f"{100 * sync['NDS']:.1f}"
+        recall = "—" if sync is None else f"{sync['recall/rcnn_0.3']:.2f}"
+        lines.append(f"| {label} | {fmt('sync')} | {fmt('async')} | {fmt('async w/o flow')} | "
+                     f"{nds} | {recall} |")
+    return lines, out
+
+
+def export(root, tag, lines, results):
+    out_root = ROOT_DIR / "results" / f"{tag}_torch"
+    out_root.mkdir(parents=True, exist_ok=True)
+    for _, cfg, cols in rows(tag):
+        for train_tag, eval_tag in cols.values():
+            src = eval_dir(root, cfg, train_tag, eval_tag)
+            if not (src / "metrics.json").exists():
+                continue
+            dst = out_root / f"{cfg}__{train_tag}__{eval_tag}"
+            dst.mkdir(parents=True, exist_ok=True)
+            for f in [src / "metrics.json"] + sorted(src.glob("log_eval_*.txt"))[-1:]:
+                shutil.copy2(f, dst / f.name)
+            train_dir = src.parent.parent
+            for f in sorted(train_dir.glob("log_train_*.txt"))[-1:]:
+                shutil.copy2(f, dst / f.name)
+    (out_root / "matrix.md").write_text("\n".join(lines) + "\n")
+    (out_root / "matrix.json").write_text(json.dumps(results, indent=1))
+    return out_root
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="the port's results table")
+    parser.add_argument("tag", nargs="?", default="synvf")
+    parser.add_argument("--export", action="store_true")
+    parser.add_argument("--output_root", default=str(ROOT_DIR / "output" / "torch"))
+    args = parser.parse_args(argv)
+    root = Path(args.output_root)
+    lines, results = table(root, args.tag)
+    print("\n".join(lines))
+    if args.export:
+        print(f"exported -> {export(root, args.tag, lines, results)}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

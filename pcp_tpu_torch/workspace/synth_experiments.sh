@@ -1,0 +1,95 @@
+#!/bin/bash
+# The lately-fusion rows of the synthetic-world matrix, on the port's CLIs:
+# train the car and the RSU sender, clear and regenerate the exchange
+# database from both, train the ego on the merged clouds, evaluate
+# lately_sync, lately_async, lately_async_noflow and the car, then export
+# the table to results/<tag>_torch/. Counterpart of the lately stages of
+# workspace/synth_experiments.sh.
+#
+#   SMOKE=1 pcp_tpu_torch/workspace/synth_experiments.sh   # tiny world, 2 epochs
+#   VF=1 pcp_tpu_torch/workspace/synth_experiments.sh      # visible-faces world (tag synvf)
+#
+# Every output lies under $OUTPUT_ROOT (default output/torch), the exchange
+# database too: the JAX package's database is keyed by the same sample
+# tokens, and one written from another world would poison the ego's
+# training. WORKERS (default 4) is handed to the loaders. Stages write markers into $OUTPUT_ROOT/stamps_<tag>, so
+# a rerun resumes after the last finished one; a failing stage stops the
+# pipeline.
+set -e
+cd "$(dirname "$0")/../.."
+
+if [ -n "$SMOKE" ]; then
+  SYN="{'NUM_SCENES': 3, 'KEYFRAMES_PER_SCENE': 4, 'NUM_CARS': 12, 'NUM_PEDS': 4, 'WORLD': 'urban', 'NUM_PARKED': 8}"
+  EPOCHS_CAR=2; EPOCHS_EGO=2; TAG=smokeurb; NPTS=16384
+else
+  SYN="{'NUM_SCENES': 15, 'KEYFRAMES_PER_SCENE': 12, 'NUM_CARS': 24, 'NUM_PEDS': 8, 'WORLD': 'urban', 'NUM_PARKED': 16}"
+  EPOCHS_CAR=25; EPOCHS_EGO=30; TAG=${TAG_OVERRIDE:-synurb}; NPTS=32768
+fi
+if [ -n "$VF" ]; then
+  SYN="${SYN%\}}, 'VISIBLE_FACES': True}"
+  [ -z "$SMOKE" ] && TAG=${TAG_OVERRIDE:-synvf}
+fi
+OUTPUT_ROOT=${OUTPUT_ROOT:-output/torch}
+OUTPUT_ROOT=$(mkdir -p "$OUTPUT_ROOT" && cd "$OUTPUT_ROOT" && pwd)
+WORKERS=${WORKERS:-4}
+PY=${PYTHON:-python3}
+EXCHANGE=$OUTPUT_ROOT/exchange_database_$TAG
+
+COMMON_SET=(DATA_CONFIG.USE_SYNTHETIC_DATA True
+            DATA_CONFIG.MAX_POINTS_PER_SAMPLE "$NPTS"
+            DATA_CONFIG.SYNTHETIC "$SYN"
+            DATA_CONFIG.MINI_TRAINVAL_STRIDE 1
+            DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY "$EXCHANGE"
+            OPTIMIZATION.LR 0.003)
+CFGS=tools/cfgs/v2x_sim_models
+OUT=$OUTPUT_ROOT/stamps_$TAG; mkdir -p "$OUT"
+ARGS=(--workers "$WORKERS" --output_root "$OUTPUT_ROOT")
+log() { echo "[$(date +%H:%M:%S)] $*"; }
+
+run_stage() {  # run_stage <name> <cmd...>
+  local name=$1; shift
+  if [ -f "$OUT/$name.done" ]; then log "skip $name (done)"; return 0; fi
+  log "=== $name ==="
+  local t0=$(date +%s.%N)
+  "$@"
+  touch "$OUT/$name.done"
+  log "done $name in $(awk "BEGIN {print $(date +%s.%N) - $t0}") s"
+}
+
+ckpt_of() { ls -d "$OUTPUT_ROOT"/cfgs/v2x_sim_models/$1/$2/ckpt/checkpoint_epoch_* 2>/dev/null | sort -V | tail -1; }
+
+train() {  # train <stagename> <cfg> <epochs> [extra --set pairs...]
+  local name=$1 cfgf=$2 epochs=$3; shift 3
+  run_stage "$name" $PY -m pcp_tpu_torch.tools.train --cfg_file $CFGS/$cfgf.yaml \
+    --batch_size 4 --epochs "$epochs" --extra_tag $TAG --num_epochs_to_eval 0 --profile "${ARGS[@]}" \
+    --set "${COMMON_SET[@]}" "$@"
+}
+
+ev() {  # ev <stagename> <cfg> [extra --set pairs...]
+  local name=$1 cfgf=$2; shift 2
+  run_stage "eval_$name" $PY -m pcp_tpu_torch.tools.test --cfg_file $CFGS/$cfgf.yaml \
+    --batch_size 4 --extra_tag $TAG --eval_tag "$name" --ckpt "$(ckpt_of $cfgf $TAG)" "${ARGS[@]}" \
+    --set "${COMMON_SET[@]}" DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 "$@"
+}
+
+gen() {  # gen <agent>
+  run_stage gen_exchange_$1 $PY -m pcp_tpu_torch.workspace.v2x_gen_exchange_database \
+    --agent $1 --ckpt "$(ckpt_of v2x_pointpillar_basic_$1 $TAG)" --synthetic \
+    --workers "$WORKERS" \
+    --set MAX_POINTS_PER_SAMPLE "$NPTS" SYNTHETIC "$SYN" MINI_TRAINVAL_STRIDE 1 \
+    EXCHANGE_DATABASE_DIRECTORY "$EXCHANGE"
+}
+
+train train_car v2x_pointpillar_basic_car $EPOCHS_CAR DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 4
+train train_rsu v2x_pointpillar_basic_rsu $EPOCHS_CAR DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1
+run_stage clean_exchange rm -rf "$EXCHANGE"
+gen car
+gen rsu
+train train_ego v2x_pointpillar_basic_ego $EPOCHS_EGO DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1
+ev lately_sync v2x_pointpillar_basic_ego DATA_CONFIG.EXCHANGE_NOW True
+ev lately_async v2x_pointpillar_basic_ego
+ev lately_async_noflow v2x_pointpillar_basic_ego DATA_CONFIG.EXCHANGE_FLOW_PROPAGATION False
+ev car v2x_pointpillar_basic_car
+$PY -m pcp_tpu_torch.workspace.collect_results "$TAG" --output_root "$OUTPUT_ROOT" \
+  $( [ -z "$SMOKE" ] && echo --export )
+log "ALL DONE"

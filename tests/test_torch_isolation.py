@@ -1,11 +1,13 @@
 """The port stands alone: no JAX, no flax/optax/orbax, nothing of pcp_tpu.
 
 Checked two ways: a fresh interpreter imports the package, builds the ego
-and car models on the CPU, puts the car in training mode and imports the
-bench and the exchange's modules, and a scan of every import statement in
-the package (``pcp_tpu_torch/bench.py`` included), in the measurement
-scripts under tools_torch/ and in chip_smoke.py. The entry point defaults to
-the GPU and raises without one.
+and car models on the CPU, puts the car in training mode, imports the
+bench, the exchange's modules, the data pipeline, the CLIs and the
+workspace scripts, reads a dataset item through the native host kernels
+(built into the port's own ``native/build/``), and a scan of every import
+statement in the package (``pcp_tpu_torch/bench.py`` included), in the
+measurement scripts under tools_torch/ and in chip_smoke.py. The entry
+points default to the GPU and raise without one.
 """
 import ast
 import subprocess
@@ -32,6 +34,18 @@ def test_fresh_interpreter_loads_no_jax():
         "import pcp_tpu_torch.bench, pcp_tpu_torch.models.loss_fnc.lovasz\n"
         "import pcp_tpu_torch.exchange, pcp_tpu_torch.train.eval_utils\n"
         "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego\n"
+        "import pcp_tpu_torch.tools.train, pcp_tpu_torch.tools.test\n"
+        "import pcp_tpu_torch.workspace.v2x_gen_exchange_database\n"
+        "import pcp_tpu_torch.workspace.collect_results\n"
+        "from pcp_tpu_torch import native\n"
+        "from pcp_tpu_torch.config import CfgDict, cfg_from_yaml_file\n"
+        "from pcp_tpu_torch.datasets import build_dataloader\n"
+        "cfg = cfg_from_yaml_file('tools/cfgs/dataset_configs/v2x_sim_dataset_rsu.yaml', CfgDict())\n"
+        "cfg.update(USE_SYNTHETIC_DATA=True, SYNTHETIC={'NUM_SCENES': 1, 'KEYFRAMES_PER_SCENE': 1})\n"
+        "ds, _, _ = build_dataloader(cfg, ['car'], batch_size=1, training=False, workers=0)\n"
+        "ds[0]\n"
+        "assert native._LIB is not None and native.library_path().parent == native.BUILD_DIR\n"
+        "assert native.BUILD_DIR.parts[-3:] == ('pcp_tpu_torch', 'native', 'build'), native.BUILD_DIR\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -57,11 +71,16 @@ def test_no_forbidden_import(source):
 
 def test_entry_defaults_to_gpu_and_raises_without_one():
     from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.tools import test as test_cli
+    from pcp_tpu_torch.tools import train as train_cli
 
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU; the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build()
+    argv = ["--cfg_file", "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_ego.yaml"]
+    for cli in (train_cli, test_cli):
+        assert cli.parse_args(argv).device == "cuda"
 
 
 def test_iou_head_branch_raises_naming_a11():
