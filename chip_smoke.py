@@ -90,18 +90,22 @@ exits non-zero:
 8. bench: ``pcp_tpu_torch/bench.py`` with the trained checkpoint (its
    profile lines, and its result line printed before the last three lines);
    the timed passes launch ``bev_scatter_max`` once a forward.
-9. pipeline: the ``SMOKE=1`` lately stages of
+9. pipeline: the ``SMOKE=1`` stages of
    ``pcp_tpu_torch/workspace/synth_experiments.sh`` through the port's CLIs
    (their ``main``), in ``build/pipeline``: the car and the RSU trained 2
-   epochs at 16384 points on the SMOKE world, both exchange passes, the ego
-   trained 2 epochs on the merged clouds, then the evaluations lately_sync,
-   lately_async and car. Each stage's seconds and kernel launches (every
-   launch count at 0 before it; it must launch ``bev_scatter_max`` and no
-   other kernel); for training the steps, the median data and step
-   milliseconds a batch, the losses (finite) and the device's idle share of
-   the traced steps; for the exchange the clouds written; for evaluations
-   mAP, NDS and recall (finite). B1 on the inputs of the ego's first
-   training step against its plain version (exact), timed there.
+   epochs at 16384 points on the SMOKE world, both exchange passes, the
+   lately ego and the sync early-fusion ego trained 2 epochs, the
+   evaluations lately_sync, lately_async, early_sync and car, the late-fusion
+   evaluations late_sync and late_sync_wnms (a host model on the exchanged
+   boxes), then the single-agent ego trained and evaluated. Each stage's
+   seconds and kernel launches (every launch count at 0 before it; a
+   network stage must launch ``bev_scatter_max`` and no other kernel, a
+   late-fusion stage none); for training the steps, the median data and
+   step milliseconds a batch, the losses (finite) and the device's idle
+   share of the traced steps; for the exchange the clouds written; for
+   evaluations mAP, NDS and recall (finite). B1 on the inputs of the lately
+   ego's and of the early ego's first training step against its plain
+   version (exact), timed there.
 
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
@@ -1701,13 +1705,16 @@ def phase_bench(card):
 PIPELINE_SYN = ("{'NUM_SCENES': 3, 'KEYFRAMES_PER_SCENE': 4, 'NUM_CARS': 12, 'NUM_PEDS': 4, "
                 "'WORLD': 'urban', 'NUM_PARKED': 8}")
 PIPELINE_NPTS, PIPELINE_EPOCHS, PIPELINE_WORKERS = 16384, 2, 4
-PIPELINE_CFGS = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_{}.yaml"
+PIPELINE_CFGS = "tools/cfgs/v2x_sim_models/{}.yaml"
 
 
 def _pipeline_stages(root):
-    """(name, kind, CLI main, argv) of the SMOKE=1 lately stages, in order:
-    the lately stages of ``pcp_tpu_torch/workspace/synth_experiments.sh``,
-    with the three evaluations this phase runs."""
+    """(name, kind, CLI main, argv, run directory) of the SMOKE=1 stages, in
+    the order of ``pcp_tpu_torch/workspace/synth_experiments.sh``: the
+    senders, their exchange passes, the lately ego and the sync early-fusion
+    ego, the evaluations lately_sync, lately_async, early_sync and car, the
+    late-fusion evaluations late_sync (NMS) and late_sync_wnms (weighted box
+    fusion), then the single-agent ego and its evaluation."""
     from pcp_tpu_torch.tools import test as test_cli
     from pcp_tpu_torch.tools import train as train_cli
     from pcp_tpu_torch.workspace import v2x_gen_exchange_database as genx
@@ -1717,42 +1724,65 @@ def _pipeline_stages(root):
               "DATA_CONFIG.MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS),
               "DATA_CONFIG.SYNTHETIC", PIPELINE_SYN, "DATA_CONFIG.MINI_TRAINVAL_STRIDE", "1",
               "DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY", exch, "OPTIMIZATION.LR", "0.003"]
-    base = ["--batch_size", "4", "--extra_tag", "smoke", "--device", "cuda",
-            "--workers", str(PIPELINE_WORKERS), "--output_root", str(root)]
+    base = ["--batch_size", "4", "--device", "cuda", "--workers", str(PIPELINE_WORKERS),
+            "--output_root", str(root)]
 
-    def ckpt(model):
-        out = root / "cfgs" / "v2x_sim_models" / f"v2x_pointpillar_basic_{model}" / "smoke"
-        return str(out / "ckpt" / f"checkpoint_epoch_{PIPELINE_EPOCHS}.pth")
+    def run_dir(cfg, tag):
+        return root / "cfgs" / "v2x_sim_models" / cfg / tag
 
-    def train(model, ratio):
-        return (f"train_{model}", "train", train_cli.main,
-                lambda: ["--cfg_file", PIPELINE_CFGS.format(model), *base,
+    def ckpt(cfg, tag):
+        return str(run_dir(cfg, tag) / "ckpt" / f"checkpoint_epoch_{PIPELINE_EPOCHS}.pth")
+
+    def train(name, cfg, tag, ratio, *extra):
+        return (name, "train", train_cli.main,
+                lambda: ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, "--extra_tag", tag,
                          "--epochs", str(PIPELINE_EPOCHS), "--num_epochs_to_eval", "0",
                          "--profile", "--set", *common,
-                         "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", str(ratio)])
+                         "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", str(ratio), *extra],
+                run_dir(cfg, tag))
 
     def gen(agent):
         return (f"gen_exchange_{agent}", "gen", genx.main,
-                lambda: ["--agent", agent, "--ckpt", ckpt(agent), "--synthetic", "--device",
-                         "cuda", "--workers", str(PIPELINE_WORKERS), "--set",
-                         "MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS), "SYNTHETIC", PIPELINE_SYN,
-                         "MINI_TRAINVAL_STRIDE", "1", "EXCHANGE_DATABASE_DIRECTORY", exch])
+                lambda: ["--agent", agent, "--ckpt", ckpt(f"v2x_pointpillar_basic_{agent}", "smoke"),
+                         "--synthetic", "--device", "cuda", "--workers", str(PIPELINE_WORKERS),
+                         "--set", "MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS), "SYNTHETIC",
+                         PIPELINE_SYN, "MINI_TRAINVAL_STRIDE", "1",
+                         "EXCHANGE_DATABASE_DIRECTORY", exch], None)
 
-    def ev(name, model, *extra):
-        return (f"eval_{name}", "eval", test_cli.main,
-                lambda: ["--cfg_file", PIPELINE_CFGS.format(model), *base, "--ckpt", ckpt(model),
-                         "--eval_tag", name, "--infer_time", "--set", *common,
-                         "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", "1", *extra])
+    def ev(name, cfg, tag, *extra):
+        weights = [] if cfg == "v2x_late_fusion" else ["--ckpt", ckpt(cfg, tag)]
+        return (f"eval_{name}", "late" if not weights else "eval", test_cli.main,
+                lambda: ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, "--extra_tag", tag,
+                         *weights, "--eval_tag", name, "--infer_time", "--set", *common,
+                         "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", "1", *extra],
+                run_dir(cfg, tag))
 
-    return [train("car", 4), train("rsu", 1), gen("car"), gen("rsu"), train("ego", 1),
-            ev("lately_sync", "ego", "DATA_CONFIG.EXCHANGE_NOW", "True"),
-            ev("lately_async", "ego"), ev("car", "car")]
+    car, rsu = "v2x_pointpillar_basic_car", "v2x_pointpillar_basic_rsu"
+    ego, early, late = ("v2x_pointpillar_basic_ego", "v2x_pointpillar_basic_ego_early",
+                        "v2x_late_fusion")
+    sync, single = ("DATA_CONFIG.EXCHANGE_PREVIOUS", "False"), ("DATA_CONFIG.EXCHANGE_MODAR", "False")
+    return [train("train_car", car, "smoke", 4), train("train_rsu", rsu, "smoke", 1),
+            gen("car"), gen("rsu"), train("train_ego", ego, "smoke", 1),
+            train("train_early_sync", early, "smoke_sync", 1, *sync),
+            ev("lately_sync", ego, "smoke", "DATA_CONFIG.EXCHANGE_NOW", "True"),
+            ev("lately_async", ego, "smoke"), ev("early_sync", early, "smoke_sync", *sync),
+            ev("car", car, "smoke"),
+            ev("late_sync", late, "smoke", "DATA_CONFIG.EXCHANGE_SETTING", "now"),
+            ev("late_sync_wnms", late, "smoke", "DATA_CONFIG.EXCHANGE_SETTING", "now",
+               "MODEL.BOX_FUSION_METHOD", "weighted_nms"),
+            train("train_single", ego, "smoke_nocollab", 1, *single),
+            ev("single", ego, "smoke_nocollab", *single)]
+
+
+# the stages whose first training scatter phase 9 keeps for B1's check, and
+# the record's key of each check
+B1_CHECKS = {"train_ego": "bev_scatter_max", "train_early_sync": "bev_scatter_max_early"}
 
 
 def phase_pipeline():
-    """Phase 9: the SMOKE=1 lately pipeline through the port's CLIs on the
-    card, in ``build/pipeline``. Returns the record of each stage and B1's
-    check on the ego's training inputs."""
+    """Phase 9: the SMOKE=1 pipeline through the port's CLIs on the card, in
+    ``build/pipeline``. Returns the record of each stage and B1's checks on
+    the lately ego's and the early ego's training inputs."""
     import shutil
 
     from pcp_tpu_torch.models.vfe import dynamic_pillar_vfe as vfe_module
@@ -1760,16 +1790,16 @@ def phase_pipeline():
 
     root = REPO / "build" / "pipeline"
     shutil.rmtree(root, ignore_errors=True)
-    record, seen = {}, []
+    record, seen = {}, {}
     scatter = vfe_module.bev_scatter_max_sorted
 
-    def spy(feats, pids, h, w):  # the ego's first training scatter, kept for B1's check
-        if not seen:
-            seen.append((feats.detach().clone(), pids.clone(), h, w))
-        return scatter(feats, pids, h, w)
+    for name, kind, main_fn, argv, run_dir in _pipeline_stages(root):
+        def spy(feats, pids, h, w, name=name):  # the stage's first training scatter
+            if name not in seen:
+                seen[name] = (feats.detach().clone(), pids.clone(), h, w)
+            return scatter(feats, pids, h, w)
 
-    for name, kind, main_fn, argv in _pipeline_stages(root):
-        vfe_module.bev_scatter_max_sorted = spy if name == "train_ego" else scatter
+        vfe_module.bev_scatter_max_sorted = spy if name in B1_CHECKS else scatter
         bs.reset_launches()
         t0 = time.perf_counter()
         try:
@@ -1780,13 +1810,14 @@ def phase_pipeline():
         seconds = time.perf_counter() - t0
         launches = dict(bs.launches)
         rec = {"seconds": seconds, "launches": launches}
-        if launches["bev_scatter_max"] == 0 or sum(launches.values()) != launches["bev_scatter_max"]:
+        if kind == "late":  # a host model: no kernel, nothing on the card
+            if any(launches.values()):
+                raise AssertionError(f"pipeline {name}: late fusion launched {launches}")
+        elif launches["bev_scatter_max"] == 0 or sum(launches.values()) != launches["bev_scatter_max"]:
             raise AssertionError(f"pipeline {name}: expected launches of bev_scatter_max only, "
                                  f"got {launches}")
         if kind == "train":
-            profile = json.loads((root / "cfgs" / "v2x_sim_models"
-                                  / f"v2x_pointpillar_basic_{name[6:]}" / "smoke" / "profile"
-                                  / "trace_summary.json").read_text())
+            profile = json.loads((run_dir / "profile" / "trace_summary.json").read_text())
             rec.update(steps=out["steps"], data_ms=out["data_ms_median"],
                        step_ms=out["step_ms_median"], losses=out["losses"],
                        device_idle_share=profile["device_idle_share"],
@@ -1815,9 +1846,11 @@ def phase_pipeline():
         record[name] = rec
         log("pipeline", f"{name}: {seconds:.3f} s; {detail}; kernel launches {launches}")
 
-    (feats, pids, h, w), = seen
-    record["bev_scatter_max"] = b1_on_inputs("pipeline", "ego training step's", feats, pids, h, w)
-    log("pipeline", f"stages {len(record) - 1}, {sum(r['seconds'] for k, r in record.items() if k != 'bev_scatter_max'):.3f} s in all")
+    for stage, key in B1_CHECKS.items():
+        feats, pids, h, w = seen[stage]
+        record[key] = b1_on_inputs("pipeline", f"{stage}'s first step's", feats, pids, h, w)
+    total = sum(r["seconds"] for k, r in record.items() if "seconds" in r)
+    log("pipeline", f"stages {len(record) - len(B1_CHECKS)}, {total:.3f} s in all")
     return record
 
 

@@ -1,13 +1,15 @@
 """Host-side data of the port: counterpart of ``pcp_tpu/datasets``.
 
-The registry holds the V2X-Sim RSU, car and ego (lately-fusion) datasets;
-the early, late and DiscoNet ego datasets come with ROADMAP A9, KITTI,
-nuScenes and custom data with A11.
+The registry holds the V2X-Sim RSU and car datasets and the ego's lately,
+early and late fusion datasets; the DiscoNet ego dataset comes with ROADMAP
+A9, KITTI, nuScenes and custom data with A11.
 """
 from .dataset import DatasetTemplate
 from .loader import DataLoader
 from .v2x_sim.v2x_sim_dataset_car import V2XSimDataset_CAR
 from .v2x_sim.v2x_sim_dataset_ego import V2XSimDataset_EGO
+from .v2x_sim.v2x_sim_dataset_ego_early import V2XSimDataset_EGO_EARLY
+from .v2x_sim.v2x_sim_dataset_ego_late import V2XSimDataset_EGO_LATE
 from .v2x_sim.v2x_sim_dataset_rsu import V2XSimDataset_RSU
 
 __all__ = {
@@ -15,9 +17,10 @@ __all__ = {
     "V2XSimDataset_RSU": V2XSimDataset_RSU,
     "V2XSimDataset_CAR": V2XSimDataset_CAR,
     "V2XSimDataset_EGO": V2XSimDataset_EGO,
+    "V2XSimDataset_EGO_EARLY": V2XSimDataset_EGO_EARLY,
+    "V2XSimDataset_EGO_LATE": V2XSimDataset_EGO_LATE,
 }
-NOT_PORTED = {"V2XSimDataset_EGO_EARLY": "A9", "V2XSimDataset_EGO_LATE": "A9",
-              "V2XSimDataset_EGO_DISCO": "A9", "KittiDataset": "A11",
+NOT_PORTED = {"V2XSimDataset_EGO_DISCO": "A9", "KittiDataset": "A11",
               "NuScenesDataset": "A11", "CustomDataset": "A11"}
 
 

@@ -1,7 +1,8 @@
 from .centerpoint import CenterPoint
 from .detector_template import DatasetInfo, Detector3DTemplate
+from .v2x_late_fusion import V2XLateFusion
 
-__all__ = {"CenterPoint": CenterPoint}
+__all__ = {"CenterPoint": CenterPoint, "V2XLateFusion": V2XLateFusion}
 
 
 def build_detector(model_cfg, num_class, dataset_info):

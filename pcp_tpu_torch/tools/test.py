@@ -6,10 +6,11 @@
 
 Evaluates one checkpoint (``eval_single_ckpt``), or with ``--eval_all`` each
 new checkpoint of ``--ckpt_dir`` in epoch order (``repeat_eval_ckpt``,
-polling for up to ``--max_waiting_mins``). Each evaluation writes its log,
-``metrics_summary.json`` and ``metrics.json`` (the numeric results under the
-JAX package's keys) under ``{output_root}/{EXP_GROUP}/{TAG}/{extra_tag}/eval/
-[{eval_tag}/]``. A config that sets ``GENERATING_EXCHANGE_DATA`` broadcasts
+polling for up to ``--max_waiting_mins``); late fusion
+(``v2x_late_fusion.yaml``, a host model) takes no checkpoint. Each
+evaluation writes its log, ``metrics_summary.json`` and ``metrics.json`` (the
+numeric results under the JAX package's keys) under
+``{output_root}/{EXP_GROUP}/{TAG}/{extra_tag}/eval/[{eval_tag}/]``. A config that sets ``GENERATING_EXCHANGE_DATA`` broadcasts
 the outputs into its ``DATABASE_EXCHANGE_DATA`` directory.
 """
 import argparse
@@ -29,7 +30,7 @@ from ..train.checkpoint import latest_checkpoint, load_params_from_file
 from ..train.eval_utils import eval_one_epoch, make_exchange_writer
 from ..train.train_utils import _to_device_batch
 from ..utils.common_utils import create_logger
-from .train import add_common_args, build_model, load_cfg
+from .train import add_common_args, apply_tf32, build_model, load_cfg
 
 
 def parse_args(argv=None):
@@ -80,7 +81,23 @@ def write_metrics(result_dict, eval_dir):
 def eval_single_ckpt(model, test_set, test_loader, args, cfg, eval_dir, logger, ckpt=None):
     """Load ``ckpt`` (or ``args.ckpt``, or the newest of ``args.ckpt_dir``)
     into ``model``, evaluate, write ``metrics.json``. Returns the result
-    dict."""
+    dict. A host model (late fusion) has no weights and is evaluated as it
+    is."""
+    if not getattr(model, "is_host_model", False):
+        _load_weights(model, args, cfg, logger, ckpt)
+    result_str, result_dict, _ = eval_one_epoch(
+        model, test_set, test_loader, cfg.CLASS_NAMES, logger=logger,
+        recall_thresh_list=cfg.MODEL.POST_PROCESSING.RECALL_THRESH_LIST, output_path=eval_dir,
+        exchange_writer=exchange_writer_from_cfg(cfg, logger), infer_time=args.infer_time)
+    logger.info("\n" + result_str)
+    logger.info(f"result_dict: {result_dict}")
+    write_metrics(result_dict, eval_dir)
+    return result_dict
+
+
+def _load_weights(model, args, cfg, logger, ckpt=None):
+    """Load the checkpoint to evaluate into ``model``; with ``--bn_recal N``,
+    then recalibrate its BN statistics over N train batches."""
     device = next(model.parameters()).device
     ckpt = ckpt or args.ckpt or (latest_checkpoint(args.ckpt_dir) if args.ckpt_dir else None)
     if ckpt is None:
@@ -95,15 +112,6 @@ def eval_single_ckpt(model, test_set, test_loader, args, cfg, eval_dir, logger, 
             pin_memory=device.type == "cuda")
         recalibrate_batch_stats(model, train_loader, lambda b: _to_device_batch(b, device),
                                 max_batches=args.bn_recal, logger=logger)
-
-    result_str, result_dict, _ = eval_one_epoch(
-        model, test_set, test_loader, cfg.CLASS_NAMES, logger=logger,
-        recall_thresh_list=cfg.MODEL.POST_PROCESSING.RECALL_THRESH_LIST, output_path=eval_dir,
-        exchange_writer=exchange_writer_from_cfg(cfg, logger), infer_time=args.infer_time)
-    logger.info("\n" + result_str)
-    logger.info(f"result_dict: {result_dict}")
-    write_metrics(result_dict, eval_dir)
-    return result_dict
 
 
 def get_no_evaluated_ckpt(ckpt_dir, ckpt_record_file, start_epoch):
@@ -164,8 +172,10 @@ def main(argv=None):
     stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
     logger = create_logger(eval_dir / f"log_eval_{stamp}.txt")
     device = torch.device(args.device)
+    apply_tf32(args.tf32)
     if device.type == "cuda":
-        logger.info(f"device: {torch.cuda.get_device_name(device)}, torch {torch.__version__}")
+        logger.info(f"device: {torch.cuda.get_device_name(device)}, torch {torch.__version__}, "
+                    f"TF32 in cuDNN {torch.backends.cudnn.allow_tf32}")
     model = build_model(cfg, device)
     test_set, test_loader, _ = build_dataloader(
         dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES, batch_size=batch_size,

@@ -5,7 +5,8 @@
         [--set DATA_CONFIG.USE_SYNTHETIC_DATA True ...]
 
 Writes ``{output_root}/{EXP_GROUP}/{TAG}/{extra_tag}/``: ``ckpt/`` (rotating
-``checkpoint_epoch_{n}.pth``), the log and, with ``--profile``, a
+``checkpoint_epoch_{n}.pth``), the log, each step's loss, loss terms and
+gradient norm (``train_history_{stamp}.json``) and, with ``--profile``, a
 ``torch.profiler`` trace of part of one epoch with its summary. It resumes
 from ``--ckpt`` or the newest checkpoint there, then trains the remaining
 epochs (``train/train_utils.py::train_model``) and, with
@@ -15,6 +16,7 @@ epochs (``train/train_utils.py::train_model``) and, with
 """
 import argparse
 import datetime
+import json
 import statistics
 from pathlib import Path
 
@@ -43,7 +45,17 @@ def add_common_args(parser):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--output_root", type=str, default=str(OUTPUT_ROOT),
                         help="root of the output tree (default output/torch)")
+    parser.add_argument("--tf32", choices=("on", "off"), default="on",
+                        help="TF32 in cuDNN's convolutions (PyTorch's default: on); off also "
+                             "keeps it out of matmuls")
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
+
+
+def apply_tf32(setting):
+    """``--tf32 off``: float32 convolutions and matmuls on the card, without
+    TF32; ``on`` leaves PyTorch's defaults."""
+    if setting == "off":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def load_cfg(args):
@@ -111,6 +123,7 @@ def main(argv=None):
     logger = create_logger(output_dir / f"log_train_{stamp}.txt")
     logger.info("**********************Start logging**********************")
     device = torch.device(args.device)
+    apply_tf32(args.tf32)
     if device.type == "cuda":
         logger.info(f"device: {torch.cuda.get_device_name(device)}, torch {torch.__version__}, "
                     f"TF32 in cuDNN {torch.backends.cudnn.allow_tf32}, "
@@ -146,6 +159,7 @@ def main(argv=None):
                 ckpt_save_time_interval=args.ckpt_save_time_interval,
                 precise_bn_batches=args.precise_bn, precise_bn_every=args.precise_bn_every,
                 history=history)
+    (output_dir / f"train_history_{stamp}.json").write_text(json.dumps(history))
     launches = dict(bev_scatter.launches)
     summary = {"steps": len(history), "epochs": epochs - start_epoch,
                "losses": [h["loss"] for h in history], "launches": launches,

@@ -33,14 +33,37 @@ def _recall_counts(pred_boxes, pred_valid, gt_boxes, thresh_list):
     return torch.stack(counts).cpu().numpy()
 
 
+def _forward(model, batch, meter=None):
+    """The model's forward; with ``meter``, its time goes into it: between
+    CUDA events on the card, on the host clock on the CPU."""
+    if meter is None:
+        return model(batch)
+    if batch["points"].device.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model(batch)
+        end.record()
+        end.synchronize()
+        meter.update(start.elapsed_time(end) / 1e3)
+        return out
+    t_inf = time.perf_counter()
+    out = model(batch)
+    meter.update(time.perf_counter() - t_inf)
+    return out
+
+
 def eval_one_epoch(model, dataset, dataloader, class_names, logger=None,
                    recall_thresh_list=(0.3, 0.5, 0.7), output_path=None, exchange_writer=None,
                    infer_time=False):
     """Returns (result_str, result_dict, det_annos). ``infer_time``: the
     forward's time a batch, between CUDA events on the card (the host clock
-    on the CPU), the first two batches left out."""
-    model.eval()
-    device = next(model.parameters()).device
+    on the CPU), the first two batches left out. A host model
+    (``is_host_model``: late fusion) takes the loader's batch as it is, on
+    the host, and is not timed."""
+    host_model = getattr(model, "is_host_model", False)
+    if not host_model:
+        model.eval()
+        device = next(model.parameters()).device
     det_annos = []
     recall_acc = np.zeros(1 + len(recall_thresh_list))
     infer_meter = AverageMeter() if infer_time else None
@@ -48,27 +71,20 @@ def eval_one_epoch(model, dataset, dataloader, class_names, logger=None,
     t0 = time.time()
     with torch.inference_mode():
         for i_batch, batch in enumerate(dataloader):
-            dev_batch = _to_device_batch(batch, device)
-            timed = infer_time and i_batch >= warmup
-            if timed and device.type == "cuda":
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = model(dev_batch)
-                end.record()
-                end.synchronize()
-                infer_meter.update(start.elapsed_time(end) / 1e3)
-            elif timed:
-                t_inf = time.perf_counter()
-                out = model(dev_batch)
-                infer_meter.update(time.perf_counter() - t_inf)
+            if host_model:
+                out, dev_batch = model(batch), batch
             else:
-                out = model(dev_batch)
+                dev_batch = _to_device_batch(batch, device)
+                timed = infer_time and i_batch >= warmup
+                out = _forward(model, dev_batch, infer_meter if timed else None)
             fbd = {k: _np(v) for k, v in out["final_box_dicts"].items()}
             det_annos.extend(dataset.generate_prediction_dicts(batch, fbd, class_names))
             if "gt_boxes" in dev_batch:
-                recall_acc += _recall_counts(out["final_box_dicts"]["pred_boxes"],
-                                             out["final_box_dicts"]["pred_valid"],
-                                             dev_batch["gt_boxes"], list(recall_thresh_list))
+                fb = out["final_box_dicts"]
+                recall_acc += _recall_counts(torch.as_tensor(fb["pred_boxes"]),
+                                             torch.as_tensor(fb["pred_valid"]),
+                                             torch.as_tensor(dev_batch["gt_boxes"]),
+                                             list(recall_thresh_list))
             if exchange_writer is not None:
                 exchange_writer(batch, out)
 

@@ -86,7 +86,9 @@ def _grads(params):
 
 class AdamOneCycle(torch.optim.Optimizer):
     """Counterpart of ``adam_onecycle``; the state of a parameter is ``mu``
-    and ``nu``, and a group's ``count`` is optax's step count."""
+    and ``nu``, and a group's ``count`` is optax's step count. After a step,
+    ``grad_norm`` holds the global gradient norm before the clip (a tensor on
+    the parameters' device)."""
 
     def __init__(self, params, lr_fn, mom_fn, weight_decay, b2=0.99, eps=1e-8, grad_norm_clip=0.0):
         super().__init__(params, dict(weight_decay=weight_decay, b2=b2, eps=eps,
@@ -100,7 +102,7 @@ class AdamOneCycle(torch.optim.Optimizer):
         for group in self.param_groups:
             params = group["params"]
             grads = _grads(params)
-            clip_by_global_norm_(grads, group["grad_norm_clip"])
+            self.grad_norm = clip_by_global_norm_(grads, group["grad_norm_clip"])
             count = group["count"]
             b1, b2, lr = self.mom_fn(count), group["b2"], self.lr_fn(count)
             t = count + 1
@@ -137,8 +139,8 @@ class _StepDecay:
         if closure is not None:
             raise ValueError(f"{type(self).__name__} takes no closure")
         for group in self.param_groups:
-            clip_by_global_norm_([p.grad for p in group["params"] if p.grad is not None],
-                                 group["grad_norm_clip"])
+            self.grad_norm = clip_by_global_norm_(
+                [p.grad for p in group["params"] if p.grad is not None], group["grad_norm_clip"])
             group["lr"] = self.lr_fn(group["count"])
         super().step()
         for group in self.param_groups:

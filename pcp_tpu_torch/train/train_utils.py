@@ -68,13 +68,16 @@ def train_one_epoch(state, train_loader, epoch, logger=None, tb_writer=None, log
     busy time and idle share of the window, ``bench.trace_summary``) in
     ``trace_summary.json``. ``ckpt_save_dir``: overwrite ``latest_model.pth``
     every ``ckpt_save_time_interval`` seconds. ``history``: a list to which
-    each step appends its epoch, iteration, loss and the milliseconds spent
-    waiting for the batch (``data_ms``) and on the step (``step_ms``, the
-    loss read back). Returns (average loss, step_fn)."""
+    each step appends its epoch, iteration, loss, its ``tb_dict`` terms and
+    the optimizer's gradient norm before the clip (``tb``) and the
+    milliseconds spent waiting for the batch (``data_ms``) and on the step
+    (``step_ms``, the loss read back). Returns (average loss, step_fn, the
+    epoch mean of each term of ``tb``)."""
     model = state.model
     device = _model_device(model)
     step_fn = step_fn or make_train_step(model, state.optimizer)
     data_time, step_time, losses = AverageMeter(), AverageMeter(), AverageMeter()
+    tb_meters = {}
     prof = None
     total = len(train_loader) if hasattr(train_loader, "__len__") else "?"
     end = time.time()
@@ -90,8 +93,14 @@ def train_one_epoch(state, train_loader, epoch, logger=None, tb_writer=None, log
         loss = float(loss)
         step_time.update(time.time() - end - data_time.val)
         losses.update(loss)
+        grad_norm = getattr(state.optimizer, "grad_norm", None)
+        tb = {k: float(v) for k, v in tb.items()}
+        if grad_norm is not None:
+            tb["grad_norm"] = float(grad_norm)
+        for k, v in tb.items():
+            tb_meters.setdefault(k, AverageMeter()).update(v)
         if history is not None:
-            history.append({"epoch": epoch, "it": it, "loss": loss,
+            history.append({"epoch": epoch, "it": it, "loss": loss, "tb": tb,
                             "data_ms": data_time.val * 1e3, "step_ms": step_time.val * 1e3})
         if logger is not None and it % log_interval == 0:
             logger.info(f"epoch {epoch} it {it}/{total} loss {loss:.4f} "
@@ -100,7 +109,7 @@ def train_one_epoch(state, train_loader, epoch, logger=None, tb_writer=None, log
         if tb_writer is not None:
             tb_writer.add_scalar("train/loss", loss, state.step)
             for k, v in tb.items():
-                tb_writer.add_scalar(f"train/{k}", float(v), state.step)
+                tb_writer.add_scalar(f"train/{k}", v, state.step)
         if (ckpt_save_dir is not None and snapshot_tracker is not None
                 and time.time() - snapshot_tracker.get("t", 0.0) > ckpt_save_time_interval):
             save_latest_snapshot(state, ckpt_save_dir, epoch, it, logger=logger)
@@ -108,7 +117,7 @@ def train_one_epoch(state, train_loader, epoch, logger=None, tb_writer=None, log
         end = time.time()
     if prof is not None:
         _stop_profile(prof, profile_dir, device, logger)
-    return losses.avg, step_fn
+    return losses.avg, step_fn, {k: m.avg for k, m in tb_meters.items()}
 
 
 def _start_profile(device):
@@ -157,7 +166,7 @@ def train_model(state, train_loader, total_epochs, ckpt_dir, logger=None, max_ck
     for epoch in range(start_epoch, total_epochs):
         if hasattr(train_loader, "set_epoch"):
             train_loader.set_epoch(epoch)
-        avg_loss, step_fn = train_one_epoch(
+        avg_loss, step_fn, tb_means = train_one_epoch(
             state, train_loader, epoch, logger=logger, tb_writer=tb_writer, step_fn=step_fn,
             profile_dir=profile_dir, profile_epoch=profile_epoch, profile_steps=profile_steps,
             ckpt_save_dir=ckpt_dir, ckpt_save_time_interval=ckpt_save_time_interval,
@@ -172,5 +181,6 @@ def train_model(state, train_loader, total_epochs, ckpt_dir, logger=None, max_ck
         save_checkpoint(state, ckpt_dir, epoch + 1, state.step,
                         max_ckpt_save_num=max_ckpt_save_num, logger=logger)
         if logger is not None:
-            logger.info(f"epoch {epoch} done, avg loss {avg_loss:.4f}")
+            terms = " ".join(f"{k} {v:.4f}" for k, v in tb_means.items())
+            logger.info(f"epoch {epoch} done, avg loss {avg_loss:.4f} | {terms}")
     return state

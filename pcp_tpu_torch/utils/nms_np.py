@@ -1,9 +1,10 @@
 """Rotated BEV IoU and greedy NMS on the host, in numpy.
 
-Counterpart of ``pcp_tpu/utils/nms_np.py:11-73``: Sutherland-Hodgman
-clipping of one rectangle by the other. The ego dataset deduplicates the
-ground truth merged from every agent with it (small box sets of varying
-size, at dataset construction).
+Counterpart of ``pcp_tpu/utils/nms_np.py``: Sutherland-Hodgman clipping of
+one rectangle by the other. The ego dataset deduplicates the ground truth
+merged from every agent with it (small box sets of varying size, at dataset
+construction), and late fusion merges the agents' boxes with
+:func:`nms_bev_np` or :func:`weighted_nms_bev_np`.
 """
 import numpy as np
 
@@ -70,3 +71,46 @@ def nms_bev_np(boxes, scores, thresh):
             if iou_bev(boxes[i], boxes[j]) > thresh:
                 suppressed[j] = True
     return np.asarray(keep, dtype=np.int64)
+
+
+def weighted_nms_bev_np(boxes, scores, thresh):
+    """Greedy rotated NMS with score-weighted box averaging: each keeper's
+    geometry (x, y, z, dx, dy, dz, yaw) is replaced by the score-weighted mean
+    over its suppressed cluster (yaws aligned to the keeper's mod 2pi, flipped
+    by pi when opposed, then circularly averaged). Returns
+    ``(fused_boxes (K, 7), keep_indices (K,))`` — keep order = descending
+    score, so scores/labels follow from ``keep_indices``."""
+    boxes = np.asarray(boxes, dtype=np.float64)
+    scores = np.asarray(scores, dtype=np.float64)
+    order = np.argsort(-scores)
+    suppressed = np.zeros(len(boxes), dtype=bool)
+    keep, fused = [], []
+    half_diag = 0.5 * np.sqrt(boxes[:, 3] ** 2 + boxes[:, 4] ** 2)
+    for i in order:
+        if suppressed[i]:
+            continue
+        keep.append(int(i))
+        cluster = [i]
+        for j in order:
+            if j == i or suppressed[j]:
+                continue
+            if np.linalg.norm(boxes[i, :2] - boxes[j, :2]) > half_diag[i] + half_diag[j]:
+                continue
+            if iou_bev(boxes[i], boxes[j]) > thresh:
+                suppressed[j] = True
+                cluster.append(int(j))
+        cb = boxes[cluster, :7].copy()
+        w = scores[cluster]
+        w = w / max(w.sum(), 1e-9)
+        # heading: flip members opposed to the keeper, then weighted circular mean
+        dyaw = cb[:, 6] - cb[0, 6]
+        dyaw = (dyaw + np.pi) % (2 * np.pi) - np.pi
+        flip = np.abs(dyaw) > np.pi / 2
+        cb[flip, 6] += np.pi
+        sin_m = np.sum(w * np.sin(cb[:, 6]))
+        cos_m = np.sum(w * np.cos(cb[:, 6]))
+        out = (w[:, None] * cb[:, :6]).sum(axis=0)
+        fused.append(np.concatenate([out, [np.arctan2(sin_m, cos_m)]]))
+    if not fused:
+        return np.zeros((0, 7)), np.zeros((0,), dtype=np.int64)
+    return np.stack(fused), np.asarray(keep, dtype=np.int64)

@@ -1,7 +1,8 @@
 """Collect the port's synthetic-world results into one table.
 
 Counterpart of ``workspace/collect_results.py`` for the rows the port
-produces (the lately-fusion rows and the car sender):
+produces: single-agent, late fusion (NMS, weighted box fusion, oracle flow),
+early fusion, lately fusion and the car sender:
 
     python -m pcp_tpu_torch.workspace.collect_results [tag] [--export] [--output_root DIR]
 
@@ -19,14 +20,26 @@ from pathlib import Path
 from ..config import ROOT_DIR
 
 EGO, CAR = "v2x_pointpillar_basic_ego", "v2x_pointpillar_basic_car"
+EARLY, LATE = "v2x_pointpillar_basic_ego_early", "v2x_late_fusion"
 
 
 def rows(tag):
-    """(label, cfg, {column: (train_tag, eval_tag)}) of the table."""
-    return [("lately fusion (MoDAR, ours)", EGO,
+    """(label, cfg, {column: (train_tag, eval_tag)}) of the table, in the
+    JAX package's order."""
+    return [("single-agent ego (no collaboration)", EGO,
+             {"sync": (tag + "_nocollab", "single")}),
+            ("late fusion", LATE,
+             {"sync": (tag, "late_sync"), "async": (tag, "late_async"),
+              "async w/o flow": (tag, "late_async_noflow")}),
+            ("late fusion (weighted box fusion)", LATE,
+             {"sync": (tag, "late_sync_wnms"), "async": (tag, "late_async_wnms")}),
+            ("late fusion (oracle flow)", LATE, {"async": (tag, "late_async_oracleflow")}),
+            ("early fusion", EARLY,
+             {"sync": (tag + "_sync", "early_sync"), "async": (tag + "_async", "early_async")}),
+            ("lately fusion (MoDAR, ours)", EGO,
              {"sync": (tag, "lately_sync"), "async": (tag, "lately_async"),
               "async w/o flow": (tag, "lately_async_noflow")}),
-            ("per-agent car detector (own-view GT: not comparable to the row above)", CAR,
+            ("per-agent car detector (own-view GT: not comparable to the rows above)", CAR,
              {"sync": (tag, "car")})]
 
 

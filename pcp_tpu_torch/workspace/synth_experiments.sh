@@ -1,9 +1,13 @@
 #!/bin/bash
-# The lately-fusion rows of the synthetic-world matrix, on the port's CLIs:
-# train the car and the RSU sender, clear and regenerate the exchange
-# database from both, train the ego on the merged clouds, evaluate
-# lately_sync, lately_async, lately_async_noflow and the car, then export
-# the table to results/<tag>_torch/. Counterpart of the lately stages of
+# The synthetic-world matrix on the port's CLIs: train the car and the RSU
+# sender, clear and regenerate the exchange database from both, train the
+# lately ego on the merged clouds and the early-fusion egos (sync and
+# async), evaluate lately_sync, lately_async, lately_async_noflow, early_sync,
+# early_async and the car, the six late-fusion rows (a host model on the
+# senders' exchanged boxes: NMS and weighted box fusion, sync and async,
+# async without flow and with oracle flow), then train and evaluate the
+# single-agent ego, and export the table to results/<tag>_torch/.
+# Counterpart of the lately, early, late and single stages of
 # workspace/synth_experiments.sh.
 #
 #   SMOKE=1 pcp_tpu_torch/workspace/synth_experiments.sh   # tiny world, 2 epochs
@@ -12,9 +16,9 @@
 # Every output lies under $OUTPUT_ROOT (default output/torch), the exchange
 # database too: the JAX package's database is keyed by the same sample
 # tokens, and one written from another world would poison the ego's
-# training. WORKERS (default 4) is handed to the loaders. Stages write markers into $OUTPUT_ROOT/stamps_<tag>, so
-# a rerun resumes after the last finished one; a failing stage stops the
-# pipeline.
+# training. WORKERS (default 4) is handed to the loaders. Stages write
+# markers into $OUTPUT_ROOT/stamps_<tag>, so a rerun resumes after the last
+# finished one; a failing stage stops the pipeline.
 set -e
 cd "$(dirname "$0")/../.."
 
@@ -58,17 +62,24 @@ run_stage() {  # run_stage <name> <cmd...>
 
 ckpt_of() { ls -d "$OUTPUT_ROOT"/cfgs/v2x_sim_models/$1/$2/ckpt/checkpoint_epoch_* 2>/dev/null | sort -V | tail -1; }
 
-train() {  # train <stagename> <cfg> <epochs> [extra --set pairs...]
-  local name=$1 cfgf=$2 epochs=$3; shift 3
+train() {  # train <stagename> <cfg> <epochs> <train tag> [extra --set pairs...]
+  local name=$1 cfgf=$2 epochs=$3 tag=$4; shift 4
   run_stage "$name" $PY -m pcp_tpu_torch.tools.train --cfg_file $CFGS/$cfgf.yaml \
-    --batch_size 4 --epochs "$epochs" --extra_tag $TAG --num_epochs_to_eval 0 --profile "${ARGS[@]}" \
+    --batch_size 4 --epochs "$epochs" --extra_tag "$tag" --num_epochs_to_eval 0 --profile "${ARGS[@]}" \
     --set "${COMMON_SET[@]}" "$@"
 }
 
-ev() {  # ev <stagename> <cfg> [extra --set pairs...]
-  local name=$1 cfgf=$2; shift 2
+ev() {  # ev <stagename> <cfg> <train tag> [extra --set pairs...]
+  local name=$1 cfgf=$2 tag=$3; shift 3
   run_stage "eval_$name" $PY -m pcp_tpu_torch.tools.test --cfg_file $CFGS/$cfgf.yaml \
-    --batch_size 4 --extra_tag $TAG --eval_tag "$name" --ckpt "$(ckpt_of $cfgf $TAG)" "${ARGS[@]}" \
+    --batch_size 4 --extra_tag "$tag" --eval_tag "$name" --ckpt "$(ckpt_of $cfgf $tag)" "${ARGS[@]}" \
+    --set "${COMMON_SET[@]}" DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 "$@"
+}
+
+late() {  # late <stagename> [extra --set pairs...]: a host model, no checkpoint
+  local name=$1; shift
+  run_stage "eval_$name" $PY -m pcp_tpu_torch.tools.test --cfg_file $CFGS/v2x_late_fusion.yaml \
+    --batch_size 4 --extra_tag $TAG --eval_tag "$name" "${ARGS[@]}" \
     --set "${COMMON_SET[@]}" DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 "$@"
 }
 
@@ -80,16 +91,34 @@ gen() {  # gen <agent>
     EXCHANGE_DATABASE_DIRECTORY "$EXCHANGE"
 }
 
-train train_car v2x_pointpillar_basic_car $EPOCHS_CAR DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 4
-train train_rsu v2x_pointpillar_basic_rsu $EPOCHS_CAR DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1
+EGO=v2x_pointpillar_basic_ego EARLY=v2x_pointpillar_basic_ego_early
+train train_car v2x_pointpillar_basic_car $EPOCHS_CAR $TAG DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 4
+train train_rsu v2x_pointpillar_basic_rsu $EPOCHS_CAR $TAG DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1
 run_stage clean_exchange rm -rf "$EXCHANGE"
 gen car
 gen rsu
-train train_ego v2x_pointpillar_basic_ego $EPOCHS_EGO DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1
-ev lately_sync v2x_pointpillar_basic_ego DATA_CONFIG.EXCHANGE_NOW True
-ev lately_async v2x_pointpillar_basic_ego
-ev lately_async_noflow v2x_pointpillar_basic_ego DATA_CONFIG.EXCHANGE_FLOW_PROPAGATION False
-ev car v2x_pointpillar_basic_car
+train train_ego $EGO $EPOCHS_EGO $TAG DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1
+# early fusion: matched train and eval settings for each latency column
+train train_early_sync $EARLY $EPOCHS_EGO ${TAG}_sync DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 \
+  DATA_CONFIG.EXCHANGE_PREVIOUS False
+train train_early_async $EARLY $EPOCHS_EGO ${TAG}_async DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 \
+  DATA_CONFIG.EXCHANGE_PREVIOUS True
+ev lately_sync $EGO $TAG DATA_CONFIG.EXCHANGE_NOW True
+ev lately_async $EGO $TAG
+ev lately_async_noflow $EGO $TAG DATA_CONFIG.EXCHANGE_FLOW_PROPAGATION False
+ev early_sync $EARLY ${TAG}_sync DATA_CONFIG.EXCHANGE_PREVIOUS False
+ev early_async $EARLY ${TAG}_async DATA_CONFIG.EXCHANGE_PREVIOUS True
+ev car v2x_pointpillar_basic_car $TAG
+late late_sync DATA_CONFIG.EXCHANGE_SETTING now
+late late_async DATA_CONFIG.EXCHANGE_SETTING prev
+late late_async_noflow DATA_CONFIG.EXCHANGE_SETTING prev DATA_CONFIG.EXCHANGE_FLOW_PROPAGATION False
+late late_sync_wnms DATA_CONFIG.EXCHANGE_SETTING now MODEL.BOX_FUSION_METHOD weighted_nms
+late late_async_wnms DATA_CONFIG.EXCHANGE_SETTING prev MODEL.BOX_FUSION_METHOD weighted_nms
+late late_async_oracleflow DATA_CONFIG.EXCHANGE_SETTING prev DATA_CONFIG.EXCHANGE_ORACLE_FLOW True
+# single agent: the same ego val samples and merged gt, exchange off
+train train_single $EGO $EPOCHS_EGO ${TAG}_nocollab DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 \
+  DATA_CONFIG.EXCHANGE_MODAR False
+ev single $EGO ${TAG}_nocollab DATA_CONFIG.EXCHANGE_MODAR False
 $PY -m pcp_tpu_torch.workspace.collect_results "$TAG" --output_root "$OUTPUT_ROOT" \
   $( [ -z "$SMOKE" ] && echo --export )
 log "ALL DONE"

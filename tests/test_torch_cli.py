@@ -2,7 +2,9 @@
 of ``test_torch_eval.REDUCED`` and its tiny synthetic world.
 
 * ``tools/train.py`` writes a checkpoint an epoch, and a rerun resumes from
-  the newest one and trains only the remaining epochs;
+  the newest one and trains only the remaining epochs; its log gives each
+  epoch's mean of every loss term and of the gradient norm before the clip,
+  and its history file each step's; ``--tf32 off`` turns TF32 off;
 * ``tools/test.py`` writes ``metrics.json`` with the JAX package's keys;
   ``get_no_evaluated_ckpt`` polls in epoch order and ``repeat_eval_ckpt``
   evaluates each checkpoint once;
@@ -64,6 +66,32 @@ def test_train_cli_writes_checkpoints_and_resumes(trained):
     assert ckpt["epoch"] == 3 and ckpt["step"] == 3 * per_epoch
     logs = sorted(out.glob("log_train_*.txt"))
     assert any("resumed from" in p.read_text() for p in logs)
+
+
+def test_train_cli_logs_each_term_and_the_gradient_norm(trained):
+    out, first, second = trained
+    hist = [h for p in sorted(out.glob("train_history_*.json")) for h in json.loads(p.read_text())]
+    assert len(hist) == first["steps"] + second["steps"]
+    assert {"rpn_loss", "corrector_loss", "l_points_cls", "l_recon", "grad_norm"} <= set(hist[0]["tb"])
+    assert all(h["tb"]["grad_norm"] > 0 for h in hist)
+    line = next(ln for p in out.glob("log_train_*.txt") for ln in p.read_text().splitlines()
+                if "epoch 0 done" in ln)
+    for key in ("l_points_cls", "grad_norm"):
+        mean = np.mean([h["tb"][key] for h in hist if h["epoch"] == 0])
+        assert f"{key} {mean:.4f}" in line, (key, line)
+
+
+def test_tf32_switch():
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    argv = ["--cfg_file", CFG_CAR]
+    assert train_cli.parse_args(argv).tf32 == test_cli.parse_args(argv).tf32 == "on"
+    try:
+        train_cli.apply_tf32("on")
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+        train_cli.apply_tf32("off")
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
 def test_test_cli_writes_metrics_with_jax_keys(trained):

@@ -2,8 +2,8 @@
 
 Checked two ways: a fresh interpreter imports the package, builds the ego
 and car models on the CPU, puts the car in training mode, imports the
-bench, the exchange's modules, the data pipeline, the CLIs and the
-workspace scripts, reads a dataset item through the native host kernels
+bench, the exchange's modules, the data pipeline (the early and late fusion
+datasets too), late fusion, the CLIs and the workspace scripts, reads a dataset item through the native host kernels
 (built into the port's own ``native/build/``), and a scan of every import
 statement in the package (``pcp_tpu_torch/bench.py`` included), in the
 measurement scripts under tools_torch/ and in chip_smoke.py. The entry
@@ -34,6 +34,9 @@ def test_fresh_interpreter_loads_no_jax():
         "import pcp_tpu_torch.bench, pcp_tpu_torch.models.loss_fnc.lovasz\n"
         "import pcp_tpu_torch.exchange, pcp_tpu_torch.train.eval_utils\n"
         "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego\n"
+        "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego_early\n"
+        "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego_late\n"
+        "import pcp_tpu_torch.models.detectors.v2x_late_fusion, pcp_tpu_torch.utils.nms_np\n"
         "import pcp_tpu_torch.tools.train, pcp_tpu_torch.tools.test\n"
         "import pcp_tpu_torch.workspace.v2x_gen_exchange_database\n"
         "import pcp_tpu_torch.workspace.collect_results\n"
