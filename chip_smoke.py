@@ -103,15 +103,39 @@ exits non-zero:
    late-fusion stage none); for training the steps, the median data and
    step milliseconds a batch, the losses (finite) and the device's idle
    share of the traced steps; for the exchange the clouds written; for
-   evaluations mAP, NDS and recall (finite). B1 on the inputs of the lately
-   ego's and of the early ego's first training step against its plain
-   version (exact), timed there.
+   evaluations mAP, NDS and recall (finite). Then DiscoNet trained sync
+   (``train_disco_sync``, its frozen makers from this phase's car, RSU and
+   sync early checkpoints: the saved makers must hold those checkpoints'
+   VFE and backbone tensors, bitwise) and evaluated (``eval_disco_sync``).
+   B1 on the inputs of the lately ego's, the early ego's and DiscoNet's
+   first training step (its RSU maker's branch) against its plain version
+   (exact), timed there.
+10. disco (run after phase 8, before phase 9): DiscoNet mid fusion at full
+   width on the card, seeded weights, b4 x 32768 merged clouds of six agents
+   from the DiscoNet dataset on a few scenes of the synvf world, agent 3
+   taken out of the second sample. One eval forward with every count at 0:
+   6 launches of ``bev_scatter_max`` (the ego, the RSU maker, the car maker
+   for agents 2-5), no other kernel; B1 exact against its plain version on
+   the car maker's agent-3 branch (the second sample all sentinels), timed
+   there; the eval forward's time, stages (the three makers, the ego's VFE,
+   scatter and backbone, the fusion, the head), the makers' share and peak
+   memory; one agent's compressed BEV in bytes beside phase 6's boxflow; b1
+   (the sample with the absent agent) card against CPU: the ego's BEV
+   (1e-5), each agent's BEV (1e-4), the surviving boxes under the margin
+   rule. Then DISCO_STEPS training steps on the batch from
+   ``create_train_state``: 7 launches a step (the early maker too), the
+   loss falling, ``distill_loss`` finite, the makers' parameters and
+   buffers bitwise unchanged and without gradients; the step's time, its
+   split (the makers' forward from the stages, the ego's forward and loss,
+   backward, optimizer), the training forward's stages and peak memory.
 
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
 ``"sender_train"``, the trained ego's under ``"trained_ego"``, the bench's
-profile under ``"bench_profile"`` and phase 9's under ``"pipeline"``; each
-kernel's launches in each pipeline stage under ``"launches_in_pipeline"``),
+profile under ``"bench_profile"``, phase 10's under ``"disco"`` and phase
+9's under ``"pipeline"``; each kernel's launches in each pipeline stage under
+``"launches_in_pipeline"``, in a DiscoNet eval forward and train step under
+``"launches_per_disco_eval_forward"`` and ``"..._train_step"``),
 the card as nvidia-smi names it, and
 ``{"ok": true, "device": ...}``; the bench's line comes just before them.
 Without a CUDA device the script exits 1 and prints no result.
@@ -264,6 +288,25 @@ def _hold(got, want, rtol, what):
     return err
 
 
+def scatter_bound(feats, pids, hw, tails=None):
+    """(bytes, least ms by bytes, least ms by operations) of a scatter of
+    these sorted rows into a (B, hw, C) grid. Only the features of rows
+    whose pid lies on the grid are needed (for the tails kernel, only those
+    of each pillar's last row): a sentinel row costs its pid alone. Every
+    pid (and tails flag) is read once, the grid written once; one max per
+    needed feature (none for the tails kernel, whose rows arrive reduced)."""
+    b, _, c = feats.shape
+    rows = pids < hw
+    if tails is not None:
+        rows = rows & tails.bool()
+    needed = rows.sum().item() * c
+    bytes_moved = (needed * feats.element_size() + pids.numel() * pids.element_size()
+                   + (0 if tails is None else tails.numel() * tails.element_size())
+                   + b * hw * c * feats.element_size())
+    ops = 0 if tails is not None else needed
+    return bytes_moved, bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+
+
 def onehot_product_ops(pids, hw, tile_cells, chunk, span_tiles, cp):
     """Tensor-core operations the one-hot kernel does on these sorted pids,
     counted as its walk makes the chunks. A block takes ``span_tiles`` tiles
@@ -382,13 +425,11 @@ def phase_kernels(seed):
             plain_ms = cuda_ms(lambda: plain_fn(*args, GRID, GRID))
             library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, args[0], "amax",
                                                               include_self=True))
-            # least time: each input read once and each output written once
-            # over the HBM rate, or the operations over their peak rate: one
-            # max per input element (none for the tails kernel, whose rows
-            # arrive reduced) and, for the one-hot kernel, its bf16 products
-            bytes_moved = sum(t.numel() * 4 for t in args) + B * hw * C * 4
-            t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-            t_ops = 0.0 if name == "bev_scatter_tails" else feats.numel() / F32_OPS_PER_S * 1e3
+            # least time: the bytes the function needs over the HBM rate, or
+            # the operations over their peak rate (scatter_bound), plus the
+            # one-hot kernel's bf16 products
+            bytes_moved, t_bytes, t_ops = scatter_bound(
+                args[0], pids, hw, args[2] if name == "bev_scatter_tails" else None)
             if name == "bev_scatter_onehot":
                 plan = bs.onehot_plan(B, C, hw, bs._sm_count(feats.device))
                 cp = -(-C // plan["group"]) * plan["group"]
@@ -1184,12 +1225,13 @@ def b1_on_inputs(phase, what, feats, pids, h, w):
         library_ms = cuda_ms(lambda: torch.scatter_reduce(zeros, 1, idx, feats, "amax",
                                                           include_self=True))
         del zeros, idx
-    bytes_moved = feats.numel() * 4 + pids.numel() * 4 + feats.shape[0] * h * w * feats.shape[2] * 4
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, feats.numel() / F32_OPS_PER_S) * 1e3
+    bytes_moved, t_bytes, t_ops = scatter_bound(feats, pids, h * w)
+    bound_ms = max(t_bytes, t_ops)
     log(phase, f"{what} bev_scatter_max inputs {tuple(feats.shape)} on {h}x{w}: max_abs_err {err} "
                f"(exact equality required); kernel_ms {kernel_ms:.6f} (5 launches a timing: "
                f"device_ms {device_ms:.6f}) plain_ms {plain_ms:.6f} library_ms {library_ms:.6f} "
-               f"(torch.scatter_reduce amax) bound_ms {bound_ms:.6f} ({bytes_moved} bytes)")
+               f"(torch.scatter_reduce amax) bound_ms {bound_ms:.6f} ({bytes_moved} bytes, "
+               f"{(pids < h * w).sum().item()} of {pids.numel()} rows on the grid)")
     return {"shape": list(feats.shape), "grid": [h, w], "max_abs_err": err, "ms": kernel_ms,
             "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "library_ms": library_ms}
@@ -1760,6 +1802,9 @@ def _pipeline_stages(root):
     car, rsu = "v2x_pointpillar_basic_car", "v2x_pointpillar_basic_rsu"
     ego, early, late = ("v2x_pointpillar_basic_ego", "v2x_pointpillar_basic_ego_early",
                         "v2x_late_fusion")
+    makers = []
+    for key, (cfg, tag) in DISCO_MAKERS.items():
+        makers += [f"MODEL.{key}.CKPT", ckpt(cfg, tag)]
     sync, single = ("DATA_CONFIG.EXCHANGE_PREVIOUS", "False"), ("DATA_CONFIG.EXCHANGE_MODAR", "False")
     return [train("train_car", car, "smoke", 4), train("train_rsu", rsu, "smoke", 1),
             gen("car"), gen("rsu"), train("train_ego", ego, "smoke", 1),
@@ -1771,18 +1816,47 @@ def _pipeline_stages(root):
             ev("late_sync_wnms", late, "smoke", "DATA_CONFIG.EXCHANGE_SETTING", "now",
                "MODEL.BOX_FUSION_METHOD", "weighted_nms"),
             train("train_single", ego, "smoke_nocollab", 1, *single),
-            ev("single", ego, "smoke_nocollab", *single)]
+            ev("single", ego, "smoke_nocollab", *single),
+            train("train_disco_sync", DISCO_CFG, "smoke_dsync", 1, *sync, *makers),
+            ev("disco_sync", DISCO_CFG, "smoke_dsync", *sync)]
 
 
 # the stages whose first training scatter phase 9 keeps for B1's check, and
-# the record's key of each check
-B1_CHECKS = {"train_ego": "bev_scatter_max", "train_early_sync": "bev_scatter_max_early"}
+# the record's key of each check (DiscoNet's first is its RSU maker's branch)
+B1_CHECKS = {"train_ego": "bev_scatter_max", "train_early_sync": "bev_scatter_max_early",
+             "train_disco_sync": "bev_scatter_max_disco"}
+# DiscoNet's frozen makers in phase 9: (config, train tag) of the checkpoint
+# each takes
+DISCO_CFG = "v2x_pointpillar_disco"
+DISCO_MAKERS = {"BEV_MAKER_RSU": ("v2x_pointpillar_basic_rsu", "smoke"),
+                "BEV_MAKER_CAR": ("v2x_pointpillar_basic_car", "smoke"),
+                "BEV_MAKER_EARLY": ("v2x_pointpillar_basic_ego_early", "smoke_sync")}
+
+
+def check_overlay(root):
+    """The DiscoNet checkpoint of phase 9 holds, in each frozen maker, the
+    VFE and backbone of the checkpoint that maker took. Returns the number
+    of tensors compared."""
+    def state(cfg, tag):
+        path = (root / "cfgs" / "v2x_sim_models" / cfg / tag / "ckpt"
+                / f"checkpoint_epoch_{PIPELINE_EPOCHS}.pth")
+        return torch.load(path, map_location="cpu", weights_only=True)["model_state"]
+
+    disco, compared = state(DISCO_CFG, "smoke_dsync"), 0
+    for key, src in DISCO_MAKERS.items():
+        for name, value in state(*src).items():
+            if name.split(".")[0] in ("vfe", "backbone_2d"):
+                if not torch.equal(disco[f"{key.lower()}.{name}"], value):
+                    raise AssertionError(f"{key.lower()}.{name} is not the overlaid {src} tensor")
+                compared += 1
+    return compared
 
 
 def phase_pipeline():
     """Phase 9: the SMOKE=1 pipeline through the port's CLIs on the card, in
-    ``build/pipeline``. Returns the record of each stage and B1's checks on
-    the lately ego's and the early ego's training inputs."""
+    ``build/pipeline``, then DiscoNet from its checkpoints. Returns the
+    record of each stage, the overlay check and B1's checks on the lately
+    ego's, the early ego's and DiscoNet's training inputs."""
     import shutil
 
     from pcp_tpu_torch.models.vfe import dynamic_pillar_vfe as vfe_module
@@ -1846,12 +1920,252 @@ def phase_pipeline():
         record[name] = rec
         log("pipeline", f"{name}: {seconds:.3f} s; {detail}; kernel launches {launches}")
 
+    record["disco_overlay"] = {"tensors": check_overlay(root)}
+    log("pipeline", f"train_disco_sync: its makers hold the {record['disco_overlay']['tensors']} VFE "
+                    "and backbone tensors of the car, RSU and sync early checkpoints, bitwise")
     for stage, key in B1_CHECKS.items():
         feats, pids, h, w = seen[stage]
         record[key] = b1_on_inputs("pipeline", f"{stage}'s first step's", feats, pids, h, w)
     total = sum(r["seconds"] for k, r in record.items() if "seconds" in r)
-    log("pipeline", f"stages {len(record) - len(B1_CHECKS)}, {total:.3f} s in all")
+    log("pipeline", f"stages {len(record) - len(B1_CHECKS) - 1}, {total:.3f} s in all")
     return record
+
+
+# ------------------------------------------------------------- 10. disco
+
+CFG_DISCO = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_disco.yaml"
+# the synvf world, cut to a few scenes: the clouds of the DiscoNet rows
+DISCO_SYN = ("{'NUM_SCENES': 6, 'KEYFRAMES_PER_SCENE': 3, 'NUM_CARS': 24, 'NUM_PEDS': 8, "
+             "'WORLD': 'urban', 'NUM_PARKED': 16, 'VISIBLE_FACES': True}")
+DISCO_STEPS = 6  # the loss curve: steps on one batch
+DISCO_ABSENT = (1, 3)  # (sample, agent) taken out of the batch: an absent agent
+MAKERS = ("bev_maker_rsu", "bev_maker_car", "bev_maker_early")
+
+
+def disco_batch(cfg, b, seed):
+    """``b`` collated training items of the DiscoNet dataset (merged clouds
+    of six agents, ``MAX_POINTS_PER_SAMPLE`` 32768, augmented), with agent 3
+    taken out of the second sample: its points masked, its pose the
+    identity, ``agent_present`` False. Host tensors as the loader hands them
+    to the model."""
+    from pcp_tpu_torch.config import cfg_from_list
+    from pcp_tpu_torch.datasets import build_dataloader
+    from pcp_tpu_torch.train.train_utils import _to_device_batch
+
+    cfg_from_list(["DATA_CONFIG.USE_SYNTHETIC_DATA", "True", "DATA_CONFIG.SYNTHETIC", DISCO_SYN,
+                   "DATA_CONFIG.MAX_POINTS_PER_SAMPLE", str(N), "DATA_CONFIG.MINI_TRAINVAL_STRIDE",
+                   "1", "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", "1"], cfg)
+    ds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=b, workers=0,
+                                training=True)
+    ds.rng = np.random.RandomState(seed)
+    batch = ds.collate_batch([ds[i] for i in range(b)])
+    i, a = DISCO_ABSENT
+    gone = batch["points"][i, :, 5] == a
+    batch["points_mask"][i, gone] = False
+    batch["se3_from_ego_arr"][i, a] = np.eye(4)
+    batch["agent_present"][i, a] = False
+    return _to_device_batch(batch, "cpu")
+
+
+def disco_stages(model, training):
+    """The DiscoNet forward cut at module boundaries: the three makers, the
+    ego's VFE, scatter and backbone, the mid fusion, the head (and in
+    training its loss)."""
+    head = model.dense_head
+    stages = [(name, getattr(model, name)) for name in MAKERS]
+    stages += [("vfe", model.vfe), ("map_to_bev", model.map_to_bev),
+               ("backbone_2d", model.backbone_2d), ("v2x_mid_fusion", model.v2x_mid_fusion),
+               ("dense_head", head)]
+    if training:
+        stages.append(("loss", lambda d: dict(d, loss=head.get_loss(d["head_preds"],
+                                                                    d["head_targets"])[0]
+                                             + d["distill_loss"])))
+    return stages
+
+
+def _disco_card_vs_cpu(model, sd, batch, pp):
+    """The second sample (an agent absent) on the card against the CPU, same
+    weights and points, both under deterministic algorithms: the ego's BEV
+    (atol/rtol 1e-5), every agent's ``bev_img`` (a backbone's output:
+    atol/rtol 1e-4), the head (printed), the surviving boxes under the
+    margin rule."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.utils.box_match import match_surviving_boxes
+
+    _, _, cpu_model = build(CFG_DISCO, device="cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    one = {k: v[1:2] for k, v in batch.items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.inference_mode():
+        gpu = model(_on(one, "cuda"))
+        t0 = time.perf_counter()
+        cpu = cpu_model(one)
+        cpu_s = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(False)
+    errs = {"ego_bev": (gpu["spatial_features"].cpu() - cpu["spatial_features"]).abs().max().item()}
+    torch.testing.assert_close(gpu["spatial_features"].cpu(), cpu["spatial_features"],
+                               atol=1e-5, rtol=1e-5)
+    for a, img in cpu["bev_img"].items():  # a backbone's output: cuDNN's sums against the CPU's
+        errs[f"bev_img_{a}"] = (gpu["bev_img"][a].cpu() - img).abs().max().item()
+        torch.testing.assert_close(gpu["bev_img"][a].cpu(), img, atol=1e-4, rtol=1e-4)
+    head = {k: (gpu["head_preds"][0][k].cpu() - t).abs().max().item()
+            for k, t in cpu["head_preds"][0].items()}
+    heat = torch.sigmoid(cpu["head_preds"][0]["hm"][0].double()).numpy().reshape(-1)
+    matched = match_surviving_boxes(
+        {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
+        {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()}, heat,
+        top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH),
+        post_max=int(pp.NMS_CONFIG.NMS_POST_MAXSIZE))
+    log("disco", f"b1 eval card vs CPU (sample {DISCO_ABSENT[0]}, agent {DISCO_ABSENT[1]} absent; "
+                 f"{cpu_s:.1f} s on the CPU): max_abs_err {errs} (ego BEV atol/rtol 1e-5, bev_img "
+                 f"1e-4); head "
+                 f"max_abs_err {head} (printed); {matched} surviving boxes matched under the "
+                 "margin rule")
+    return {"max_abs_err": errs, "head_max_abs_err": head, "boxes_matched": matched, "cpu_s": cpu_s}
+
+
+def phase_disco(seed, boxflow_bytes=None):
+    """Phase 10: DiscoNet mid fusion at full width on the card. Returns
+    (launches of each kernel in one eval forward, in one train step; the
+    record)."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg, info, model = build(CFG_DISCO, device="cuda")
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    t0 = time.perf_counter()
+    host = disco_batch(cfg, b, seed + 10)
+    data_s = time.perf_counter() - t0
+    batch = _on(host, "cuda")
+    pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+    agents = [sorted(set(host["points"][i, host["points_mask"][i], 5].long().tolist()))
+              for i in range(b)]
+    log("disco", f"{sum(p.numel() for p in model.parameters())} parameters "
+                 f"({sum(p.numel() for n, p in model.named_parameters() if n.startswith('bev_maker'))}"
+                 f" in the frozen makers); b{b} x {N} merged clouds ({data_s:.1f} s to make): valid "
+                 f"rows {host['points_mask'].sum(1).tolist()}, agents {agents}, gt boxes "
+                 f"{(host['gt_boxes'][..., 7] > 0).sum(1).tolist()}, present "
+                 f"{host['agent_present'].int().tolist()}")
+
+    # eval: one forward with every count at 0, the makers' scatter inputs kept
+    sd = seeded_state_dict(model, seed)
+    model.load_state_dict(sd, strict=True)
+    seen, car_vfe = [], model.bev_maker_car.vfe
+    scatter = car_vfe.scatter_max
+
+    def spy(feats, pids, h, w):
+        seen.append((feats.detach().clone(), pids.clone(), h, w))
+        return scatter(feats, pids, h, w)
+
+    car_vfe.scatter_max = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(batch)
+        torch.cuda.synchronize()
+        eval_counts = dict(bs.launches)
+    eval_peak = torch.cuda.max_memory_allocated()
+    car_vfe.scatter_max = scatter
+    if eval_counts != {k: 6 * int(k == "bev_scatter_max") for k in eval_counts}:
+        raise AssertionError(f"DiscoNet eval forward: expected 6 launches of bev_scatter_max (ego, "
+                             f"RSU, cars 2-5), got {eval_counts}")
+    if sorted(out["bev_img"]) != [0, 2, 3, 4, 5] or "bev_img_early" in out:
+        raise AssertionError(f"eval forward: bev_img of agents {sorted(out['bev_img'])}")
+    fbd = out["final_box_dicts"]
+    if not torch.isfinite(fbd["pred_boxes"]).all() or not torch.isfinite(out["spatial_features_2d"]).all():
+        raise AssertionError("DiscoNet eval forward: values not finite")
+    log("disco", f"eval forward b{b}: kernel launches {eval_counts}; valid boxes per cloud "
+                 f"{fbd['pred_valid'].sum(1).tolist()}; fused BEV {tuple(out['spatial_features_2d'].shape)}")
+
+    # B1 on a maker branch's inputs: the car maker's agent-3 branch, whose
+    # second sample is all sentinels
+    feats, pids, h, w = seen[1]
+    hw = h * w
+    occupied = (pids < hw).sum(1).tolist()
+    if occupied[DISCO_ABSENT[0]] != 0 or not all(occupied[i] for i in range(b) if i != DISCO_ABSENT[0]):
+        raise AssertionError(f"agent 3's branch: occupied rows per sample {occupied}")
+    kernel = b1_on_inputs("disco", "the car maker's agent-3 branch (sample 1 all sentinels)",
+                          feats, pids, h, w)
+    kernel["occupied_rows"] = occupied
+    empty = bs.bev_scatter_max_sorted_cuda(feats[1:2].contiguous(), pids[1:2].contiguous(), h, w)
+    if empty.abs().max().item() != 0.0:
+        raise AssertionError("an all-sentinel sample must scatter to a zero grid")
+    del seen, feats, pids
+
+    # timings of the eval forward and its stages
+    with torch.inference_mode():
+        eval_ms = cuda_ms(lambda: model(batch), warmup=2, iters=10)
+        eval_stages = stage_ms(disco_stages(model, False), batch)
+    makers_ms = sum(eval_stages[m] for m in MAKERS)
+    log("disco", f"eval forward b{b} x {N}, full width, TF32 off: median {eval_ms:.6f} ms over 10 "
+                 f"(CUDA events), {b / eval_ms * 1e3:.3f} clouds/s; peak memory allocated {eval_peak} "
+                 "bytes; stages (median ms of 10): " + ", ".join(f"{k} {v:.6f}"
+                                                                  for k, v in eval_stages.items())
+                 + f"; the makers' share {makers_ms / sum(eval_stages.values()):.6f}")
+    compressed = model.v2x_mid_fusion.compressor.conv1.out_channels * (h // 4) * (w // 4) * 4
+    log("disco", f"one agent's compressed BEV a keyframe: {model.v2x_mid_fusion.compressor.conv1.out_channels}"
+                 f" x {h // 4} x {w // 4} float32 = {compressed} bytes"
+                 + ("" if boxflow_bytes is None else
+                    f", against the boxflow's {boxflow_bytes} bytes (phase 6): "
+                    f"{compressed / boxflow_bytes:.1f} times"))
+    check = _disco_card_vs_cpu(model, sd, host, pp)
+
+    # training: the loss curve on one batch, every count at 0 before it
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=DISCO_STEPS,
+                                   total_epochs=1)
+    state = create_train_state(model, optimizer, seed)
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("bev_maker")}
+    step = make_train_step(model, optimizer)
+    bs.reset_launches()
+    curve = [step(batch) for _ in range(DISCO_STEPS)]
+    torch.cuda.synchronize()
+    train_counts = dict(bs.launches)
+    losses = [loss.item() for loss, _ in curve]
+    distill = [tb["distill_loss"].item() for _, tb in curve]
+    log("disco", "loss curve " + " ".join(f"{v:.6f}" for v in losses) + "; distill_loss "
+                 + " ".join(f"{v:.6e}" for v in distill) + f"; launches {train_counts} in "
+                 f"{DISCO_STEPS} steps, step count {state.step}")
+    if train_counts != {k: 7 * DISCO_STEPS * int(k == "bev_scatter_max") for k in train_counts}:
+        raise AssertionError(f"expected 7 launches of bev_scatter_max a DiscoNet train step (ego, RSU, "
+                             f"cars 2-5, early), got {train_counts}")
+    if not (np.isfinite(losses).all() and np.isfinite(distill).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"DiscoNet training: losses {losses}, distill {distill}")
+    changed = [k for k, v in model.state_dict().items() if k in frozen and not torch.equal(v, frozen[k])]
+    if changed or any(p.grad is not None for n, p in model.named_parameters() if n.startswith("bev_maker")):
+        raise AssertionError(f"the frozen makers changed in training: {changed}")
+    log("disco", f"the makers' {len(frozen)} parameters and buffers are bitwise unchanged after "
+                 f"{DISCO_STEPS} steps, and none holds a gradient")
+
+    step_ms, split, peak = time_train_steps(model, optimizer, batch)
+    train_stages = stage_ms(disco_stages(model, True), batch)
+    makers_train = sum(train_stages[m] for m in MAKERS)
+    ego_fwd = split["forward_loss"] - makers_train
+    log("disco", f"train step b{b} x {N}, full width, TF32 off: median {step_ms:.6f} ms over 10 after "
+                 f"3 warm-ups (host clock, synchronized), {b / step_ms * 1e3:.3f} samples/s; split "
+                 f"(median ms, CUDA events): makers' forward {makers_train:.6f} (from the stages), "
+                 f"ego forward and loss {ego_fwd:.6f}, backward {split['backward']:.6f}, optimizer "
+                 f"{split['optimizer']:.6f}; peak memory allocated {peak} bytes "
+                 f"({peak / 2**30:.3f} GiB); training forward stages (median ms of 10): "
+                 + ", ".join(f"{k} {v:.6f}" for k, v in train_stages.items()))
+    record = {"config": str(CFG_DISCO.relative_to(REPO)), "batch": b, "points": N,
+              "valid_rows": host["points_mask"].sum(1).tolist(), "agents": agents,
+              "eval_launches": eval_counts, "train_launches_per_step":
+                  {k: v // DISCO_STEPS for k, v in train_counts.items()},
+              "eval_ms": eval_ms, "eval_clouds_per_s": b / eval_ms * 1e3, "eval_stages_ms": eval_stages,
+              "eval_makers_share": makers_ms / sum(eval_stages.values()), "eval_peak_bytes": eval_peak,
+              "step_ms": step_ms, "samples_per_s": b / step_ms * 1e3,
+              "makers_forward_ms": makers_train, "ego_forward_loss_ms": ego_fwd,
+              **{f"{k}_ms": v for k, v in split.items()}, "train_stages_ms": train_stages,
+              "peak_bytes": peak, "losses": losses, "distill_losses": distill,
+              "compressed_bev_bytes": compressed, "boxflow_bytes": boxflow_bytes,
+              "card_vs_cpu": check, "bev_scatter_max_maker_branch": kernel}
+    del model, optimizer, state, batch, out
+    torch.cuda.empty_cache()
+    return ({k: v for k, v in eval_counts.items()},
+            {k: v // DISCO_STEPS for k, v in train_counts.items()}, record)
 
 
 def main(argv=None):
@@ -1878,6 +2192,12 @@ def main(argv=None):
         record["launches_per_sender_forward"] = sender_launches[kernel]
         record["launches_per_sender_train_step"] = sender_train_launches[kernel]
     bench = phase_bench(card)
+    wire = senders["exchange"]["wire"].values()
+    disco_eval, disco_train, disco = phase_disco(
+        args.seed, statistics.mean(v["boxflow_bytes"] for v in wire))
+    for kernel, record in records.items():
+        record["launches_per_disco_eval_forward"] = disco_eval[kernel]
+        record["launches_per_disco_train_step"] = disco_train[kernel]
     pipeline = phase_pipeline()
     for kernel, record in records.items():
         record["launches_in_pipeline"] = {name: rec["launches"][kernel]
@@ -1886,7 +2206,7 @@ def main(argv=None):
     print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
                       "sender_train": sender_train, "trained_ego": trained,
-                      "bench_profile": bench["profile"], "pipeline": pipeline}))
+                      "bench_profile": bench["profile"], "disco": disco, "pipeline": pipeline}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

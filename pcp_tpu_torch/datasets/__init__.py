@@ -1,13 +1,14 @@
 """Host-side data of the port: counterpart of ``pcp_tpu/datasets``.
 
 The registry holds the V2X-Sim RSU and car datasets and the ego's lately,
-early and late fusion datasets; the DiscoNet ego dataset comes with ROADMAP
-A9, KITTI, nuScenes and custom data with A11.
+early, late and mid (DiscoNet) fusion datasets; KITTI, nuScenes and custom
+data come with ROADMAP A11.
 """
 from .dataset import DatasetTemplate
 from .loader import DataLoader
 from .v2x_sim.v2x_sim_dataset_car import V2XSimDataset_CAR
 from .v2x_sim.v2x_sim_dataset_ego import V2XSimDataset_EGO
+from .v2x_sim.v2x_sim_dataset_ego_disco import V2XSimDataset_EGO_DISCO
 from .v2x_sim.v2x_sim_dataset_ego_early import V2XSimDataset_EGO_EARLY
 from .v2x_sim.v2x_sim_dataset_ego_late import V2XSimDataset_EGO_LATE
 from .v2x_sim.v2x_sim_dataset_rsu import V2XSimDataset_RSU
@@ -19,9 +20,9 @@ __all__ = {
     "V2XSimDataset_EGO": V2XSimDataset_EGO,
     "V2XSimDataset_EGO_EARLY": V2XSimDataset_EGO_EARLY,
     "V2XSimDataset_EGO_LATE": V2XSimDataset_EGO_LATE,
+    "V2XSimDataset_EGO_DISCO": V2XSimDataset_EGO_DISCO,
 }
-NOT_PORTED = {"V2XSimDataset_EGO_DISCO": "A9", "KittiDataset": "A11",
-              "NuScenesDataset": "A11", "CustomDataset": "A11"}
+NOT_PORTED = {"KittiDataset": "A11", "NuScenesDataset": "A11", "CustomDataset": "A11"}
 
 
 def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, workers=4,

@@ -8,7 +8,10 @@
 model's device. The senders (``CFG_CAR``, ``CFG_RSU``: CenterPoint with the
 HunterJr corrector, 7-feature points) also return ``points_cls_prob`` and
 ``points_flow3d``, which ``train/eval_utils.py::make_exchange_writer``
-broadcasts through ``exchange/database.py``. The model is in eval mode with
+broadcasts through ``exchange/database.py``. DiscoNet (``CFG_DISCO``: mid
+fusion with frozen per-agent BEV makers) takes 6-feature merged clouds
+whose last column is the agent, with ``se3_from_ego_arr`` (B, 6, 4, 4) and
+``agent_present`` (B, 6). The model is in eval mode with
 initial weights; load trained ones with ``model.load_state_dict`` (see
 ``utils/jax_weights.py``).
 """
@@ -20,6 +23,7 @@ from .models import DatasetInfo, build_network
 CFG_EGO = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_ego.yaml"
 CFG_CAR = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_car.yaml"
 CFG_RSU = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_rsu.yaml"
+CFG_DISCO = "tools/cfgs/v2x_sim_models/v2x_pointpillar_disco.yaml"
 
 
 def build(cfg_path=CFG_EGO, device="cuda", pre_reduce=None):

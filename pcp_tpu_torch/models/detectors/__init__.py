@@ -10,5 +10,5 @@ def build_detector(model_cfg, num_class, dataset_info):
         cls = __all__[model_cfg["NAME"]]
     except KeyError:
         raise NotImplementedError(
-            f"detector {model_cfg['NAME']!r} is not ported yet (ROADMAP A9-A11)") from None
+            f"detector {model_cfg['NAME']!r} is not ported yet (ROADMAP A11)") from None
     return cls(model_cfg=model_cfg, num_class=num_class, dataset_info=dataset_info)

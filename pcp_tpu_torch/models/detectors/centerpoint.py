@@ -8,8 +8,8 @@ HunterJr corrector (the car and RSU senders), its ``points_cls_prob`` and
 ``points_flow3d``; in training mode (``model.train()``) it carries ``loss``
 and ``tb_dict``: the CenterHead's loss plus, on a sender whose batch holds
 ``instances_tf`` (B, Ni, S, 4, 4), the corrector's (``corrector_loss`` and
-its terms in the tb). The distillation loss comes with DiscoNet (ROADMAP
-A9), which ``build_network`` refuses.
+its terms in the tb), and on DiscoNet the mid fusion's ``distill_loss``
+against the early-fusion teacher BEV.
 """
 from .detector_template import Detector3DTemplate
 
@@ -25,5 +25,8 @@ class CenterPoint(Detector3DTemplate):
                 loss = loss + out["corrector_loss"]
                 tb["corrector_loss"] = out["corrector_loss"]
                 tb.update(out["corrector_tb"])
+            if "distill_loss" in out:
+                loss = loss + out["distill_loss"]
+                tb["distill_loss"] = out["distill_loss"]
             out["loss"], out["tb_dict"] = loss, tb
         return out

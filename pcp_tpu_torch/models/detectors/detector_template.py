@@ -1,21 +1,25 @@
 """Config-driven construction of the detector.
 
 Counterpart of ``pcp_tpu/models/detectors/detector_template.py``. The MODEL
-config names the sub-modules; each is registered under its pcdet name
-(``vfe``, ``map_to_bev``, ``backbone_2d``, ``corrector``, ``dense_head``) so
+config names the sub-modules; each is registered under its pcdet name so
 that the state dict carries pcdet's keys, and the forward threads a batch
-dict through them in that order. Only the modules of the pillar CenterPoint
-and the HunterJr corrector are ported; any other MODEL key raises.
+dict through them in the JAX package's order: DiscoNet's frozen BEV makers
+(``bev_maker_rsu``, ``bev_maker_car``, ``bev_maker_early``), the
+distillation ``teacher``, ``vfe``, ``map_to_bev``, ``backbone_2d``, the
+``corrector`` (HunterJr or the oracle), DiscoNet's ``v2x_mid_fusion`` and
+the ``dense_head``. Any other MODEL key raises naming its ROADMAP item.
 """
 import dataclasses
 from typing import Tuple
 
 from torch import nn
 
-# MODEL keys the slice builds, in forward order
-MODULE_KEYS = (("VFE", "vfe"), ("MAP_TO_BEV", "map_to_bev"),
-               ("BACKBONE_2D", "backbone_2d"), ("CORRECTOR", "corrector"),
-               ("DENSE_HEAD", "dense_head"))
+# MODEL keys the port builds, in forward order
+MAKER_KEYS = ("BEV_MAKER_RSU", "BEV_MAKER_CAR", "BEV_MAKER_EARLY")
+MODULE_KEYS = (tuple((key, key.lower()) for key in MAKER_KEYS)
+               + (("TEACHER", "teacher"), ("VFE", "vfe"), ("MAP_TO_BEV", "map_to_bev"),
+                  ("BACKBONE_2D", "backbone_2d"), ("CORRECTOR", "corrector"),
+                  ("V2X_MID_FUSION", "v2x_mid_fusion"), ("DENSE_HEAD", "dense_head")))
 # MODEL keys that configure no module
 PLAIN_KEYS = ("NAME", "POST_PROCESSING", "BF16")
 
@@ -59,7 +63,7 @@ class Detector3DTemplate(nn.Module):
 
     def build_module_list(self):
         from ..backbones_2d import build_backbone_2d
-        from ..bev_layers import build_corrector
+        from ..bev_layers import build_bev_maker, build_corrector, build_teacher, build_v2x_fusion
         from ..dense_heads import build_dense_head
         from ..map_to_bev import build_map_to_bev
         from ..vfe import build_vfe
@@ -68,12 +72,19 @@ class Detector3DTemplate(nn.Module):
         known = {key for key, _ in MODULE_KEYS} | set(PLAIN_KEYS)
         extra = sorted(k for k, v in cfg.items() if v is not None and k not in known)
         if extra:
-            raise NotImplementedError(f"MODEL keys {extra} are not ported yet (ROADMAP A9-A11)")
+            raise NotImplementedError(f"MODEL keys {extra} are not ported yet (ROADMAP A11)")
         if cfg.get("BF16", False):
             raise NotImplementedError("MODEL BF16 is not ported yet (ROADMAP A13)")
 
         names = []
         num_bev_features = None
+        for key in MAKER_KEYS:
+            if cfg.get(key) is not None:
+                self.add_module(key.lower(), build_bev_maker(cfg[key], info, role=key.lower()))
+                names.append(key.lower())
+        if cfg.get("TEACHER") is not None:
+            self.add_module("teacher", build_teacher(cfg["TEACHER"], info))
+            names.append("teacher")
         if cfg.get("VFE") is not None:
             self.add_module("vfe", build_vfe(cfg["VFE"], info))
             names.append("vfe")
@@ -89,6 +100,10 @@ class Detector3DTemplate(nn.Module):
         if cfg.get("CORRECTOR") is not None:
             self.add_module("corrector", build_corrector(cfg["CORRECTOR"], info, num_bev_features))
             names.append("corrector")
+        if cfg.get("V2X_MID_FUSION") is not None:
+            self.add_module("v2x_mid_fusion",
+                            build_v2x_fusion(cfg["V2X_MID_FUSION"], info, num_bev_features))
+            names.append("v2x_mid_fusion")
         if cfg.get("DENSE_HEAD") is not None:
             self.add_module("dense_head", build_dense_head(cfg["DENSE_HEAD"], info,
                                                            num_bev_features, self.num_class))

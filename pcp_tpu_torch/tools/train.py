@@ -7,7 +7,9 @@
 Writes ``{output_root}/{EXP_GROUP}/{TAG}/{extra_tag}/``: ``ckpt/`` (rotating
 ``checkpoint_epoch_{n}.pth``), the log, each step's loss, loss terms and
 gradient norm (``train_history_{stamp}.json``) and, with ``--profile``, a
-``torch.profiler`` trace of part of one epoch with its summary. It resumes
+``torch.profiler`` trace of part of one epoch with its summary. DiscoNet's
+frozen BEV makers take the weights of the single-agent checkpoints their
+``MODEL.BEV_MAKER_*.CKPT`` name once the state is built. It resumes
 from ``--ckpt`` or the newest checkpoint there, then trains the remaining
 epochs (``train/train_utils.py::train_model``) and, with
 ``--num_epochs_to_eval`` > 0, evaluates the last checkpoints
@@ -25,8 +27,9 @@ import torch
 from ..config import ROOT_DIR, CfgDict, cfg_from_list, cfg_from_yaml_file, log_config_to_file
 from ..datasets import build_dataloader
 from ..models import DatasetInfo, build_network
+from ..models.detectors.detector_template import MAKER_KEYS
 from ..ops import bev_scatter
-from ..train.checkpoint import latest_checkpoint, load_checkpoint
+from ..train.checkpoint import latest_checkpoint, load_checkpoint, overlay_bev_maker_weights
 from ..train.optimization import build_optimizer
 from ..train.train_state import create_train_state
 from ..train.train_utils import train_model
@@ -70,12 +73,36 @@ def load_cfg(args):
     cfg.EXP_GROUP_PATH = "/".join(args.cfg_file.split("/")[1:-1])
     if args.set_cfgs is not None:
         cfg_from_list(args.set_cfgs, cfg)
-    for key in ("BEV_MAKER_RSU", "BEV_MAKER_CAR", "BEV_MAKER_EARLY"):
-        if cfg.MODEL.get(key) is not None:
-            raise NotImplementedError(f"MODEL.{key} (DiscoNet's frozen BEV makers) is not ported "
-                                      "yet (ROADMAP A9)")
     output_dir = Path(args.output_root) / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
     return cfg, output_dir
+
+
+def resolve_maker_ckpt(path):
+    """A BEV maker's ``CKPT``: an absolute path as given; a relative one
+    with its leading ``../`` and ``./`` stripped, taken from the repository
+    root, so that nothing outside the checkout is read."""
+    ckpt = Path(str(path))
+    if ckpt.is_absolute():
+        return ckpt
+    stripped = str(path)
+    while stripped.startswith("../") or stripped.startswith("./"):
+        stripped = stripped.split("/", 1)[1]
+    return ROOT_DIR / stripped
+
+
+def overlay_makers(model, model_cfg, logger):
+    """DiscoNet's frozen makers take the weights of the single-agent
+    checkpoints their ``CKPT`` names; a missing file leaves the maker's
+    seeded weights, with a warning, as the JAX CLI does."""
+    for key in MAKER_KEYS:
+        mk_cfg = model_cfg.get(key)
+        if mk_cfg is None or not mk_cfg.get("CKPT"):
+            continue
+        ckpt = resolve_maker_ckpt(mk_cfg["CKPT"])
+        if not ckpt.exists():
+            logger.warning(f"{key}.CKPT not found: {mk_cfg['CKPT']} -- maker stays random")
+            continue
+        overlay_bev_maker_weights(model, key.lower(), ckpt, logger=logger)
 
 
 def build_model(cfg, device):
@@ -142,6 +169,7 @@ def main(argv=None):
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, len(train_loader), epochs)
     state = create_train_state(model, optimizer, seed)
     logger.info(f"model parameters: {sum(p.numel() for p in model.parameters())}")
+    overlay_makers(model, cfg.MODEL, logger)
 
     start_epoch = 0
     resume_from = args.ckpt or latest_checkpoint(ckpt_dir)

@@ -73,3 +73,21 @@ def load_params_from_file(path):
     """Weights only: the model state dict (parameters and running
     statistics), for ``model.load_state_dict``."""
     return load_checkpoint(path)["model_state"]
+
+
+
+def overlay_bev_maker_weights(model, maker_name, agent_ckpt_path, logger=None):
+    """Copy the ``vfe``, ``map_to_bev`` and ``backbone_2d`` weights and
+    running statistics of a trained single-agent detector (a port
+    checkpoint of the car, the RSU or the early ego) into DiscoNet's frozen
+    maker ``maker_name`` (``bev_maker_car``, ...), each sub-module strictly;
+    counterpart of ``pcp_tpu/train/checkpoint.py::overlay_bev_maker_weights``.
+    Returns the maker's state dict after the copy."""
+    agent_sd = load_params_from_file(agent_ckpt_path)
+    maker = getattr(model, maker_name)
+    for sub in ("vfe", "map_to_bev", "backbone_2d"):
+        part = {k[len(sub) + 1:]: v for k, v in agent_sd.items() if k.startswith(f"{sub}.")}
+        getattr(maker, sub).load_state_dict(part, strict=True)
+        if logger is not None:
+            logger.info(f"overlaid {maker_name}.{sub} ({len(part)} tensors) from {agent_ckpt_path}")
+    return maker.state_dict()

@@ -22,17 +22,21 @@ def _to_device_batch(batch, device):
     """A batch dict (numpy arrays or tensors, pinned where the loader pinned
     them) as the model takes it, on ``device``: float32 points and gt boxes,
     the bool mask, and where the batch has them the senders'
-    ``instances_tf`` (B, Ni, S, 4, 4) and a teacher BEV
-    ``teacher_spatial_features_2d`` (B, C, H, W), both float32. The copies
-    are ``non_blocking``: from pinned memory they overlap the card's work."""
+    ``instances_tf`` (B, Ni, S, 4, 4), a teacher BEV
+    ``teacher_spatial_features_2d`` (B, C, H, W) and DiscoNet's agent poses
+    ``se3_from_ego_arr`` (B, 6, 4, 4), all float32, and DiscoNet's
+    ``agent_present`` (B, 6) bool. The copies are ``non_blocking``: from
+    pinned memory they overlap the card's work."""
 
     def to(x, dtype=None):
         return torch.as_tensor(x).to(device=device, dtype=dtype, non_blocking=True)
 
     dev = {"points": to(batch["points"], torch.float32), "points_mask": to(batch["points_mask"])}
-    for key in ("gt_boxes", "instances_tf", "teacher_spatial_features_2d"):
+    for key in ("gt_boxes", "instances_tf", "teacher_spatial_features_2d", "se3_from_ego_arr"):
         if key in batch:
             dev[key] = to(batch[key], torch.float32)
+    if "agent_present" in batch:
+        dev["agent_present"] = to(batch["agent_present"], torch.bool)
     return dev
 
 

@@ -2,8 +2,18 @@
 
 The inverse of ``pcp_tpu/utils/torch_converter.py::convert_centerpoint_state_dict``
 for the pillar CenterPoint and its HunterJr corrector (conv_input, the point
-head, the object head where the variables have one, the weightor): it takes
-``{'params', 'batch_stats'}`` as numpy arrays and returns tensors under pcdet's names, ready for
+head, the object head where the variables have one, the weightor), and for
+DiscoNet: the frozen BEV makers ``bev_maker_{rsu,car,early}`` and the
+distillation ``teacher`` (each a VFE and a backbone, under the pcdet names
+of the single-agent detector with the maker's prefix:
+``bev_maker_car.vfe.pfn_layers.0.linear.weight``,
+``bev_maker_car.backbone_2d.blocks.0.1.weight``, ...) and the mid fusion,
+whose names are the JAX package's module names
+(``v2x_mid_fusion.compressor.conv0``, ``...compressor.bn0``,
+``...pixel_weightor.conv1_1``, ``...pixel_weightor.bn1_1``,
+``...decompressor.conv1``, ...): the reference's own state-dict names for
+DiscoNet are not at hand. It takes ``{'params', 'batch_stats'}`` as numpy
+arrays and returns tensors under those names, ready for
 ``load_state_dict(strict=True)``. :func:`tensors_from_jax_params` maps any
 tree shaped like ``params`` the same way (gradients, adam_onecycle's ``mu``
 and ``nu``) onto the parameters' names, so training state can be held leaf
@@ -57,16 +67,21 @@ def _put_conv(sd, prefix, params, to_weight=_conv):
 def state_dict_from_jax_variables(variables, model_cfg):
     """Map flax ``variables`` of a pillar CenterPoint built from ``model_cfg``
     (the MODEL config) to a pcdet-named state dict of tensors. Sub-modules
-    whose key (VFE, BACKBONE_2D, CORRECTOR, DENSE_HEAD) the config lacks are
-    skipped."""
+    whose key (BEV_MAKER_*, TEACHER, VFE, BACKBONE_2D, CORRECTOR,
+    V2X_MID_FUSION, DENSE_HEAD) the config lacks, or whose subtree the
+    variables lack (an eval-mode init never calls the early maker or the
+    teacher), are skipped."""
     params, stats = variables["params"], variables.get("batch_stats")
     sd = {}
-    if "VFE" in model_cfg:
-        _vfe(sd, params["vfe"], _sub(stats, "vfe"), model_cfg["VFE"])
-    if "BACKBONE_2D" in model_cfg:
-        _backbone(sd, params["backbone_2d"], _sub(stats, "backbone_2d"), model_cfg["BACKBONE_2D"])
-    if "CORRECTOR" in model_cfg:
+    for key in ("BEV_MAKER_RSU", "BEV_MAKER_CAR", "BEV_MAKER_EARLY", "TEACHER"):
+        name = key.lower()
+        if model_cfg.get(key) is not None and name in params:
+            _single_agent(sd, params[name], _sub(stats, name), model_cfg[key], f"{name}.")
+    _single_agent(sd, params, stats, model_cfg)
+    if "CORRECTOR" in model_cfg and model_cfg["CORRECTOR"]["NAME"] == "HunterJr":
         _corrector(sd, params["corrector"], _sub(stats, "corrector"))
+    if model_cfg.get("V2X_MID_FUSION") is not None and "v2x_mid_fusion" in params:
+        _disco(sd, params["v2x_mid_fusion"], _sub(stats, "v2x_mid_fusion"))
     if "DENSE_HEAD" in model_cfg:
         _head(sd, params["dense_head"], _sub(stats, "dense_head"), model_cfg["DENSE_HEAD"])
     return sd
@@ -85,9 +100,17 @@ def _sub(stats, key):
     return None if stats is None else stats.get(key, {})
 
 
-def _vfe(sd, vfe_p, vfe_s, vcfg):
+def _single_agent(sd, params, stats, cfg, prefix=""):
+    """The VFE and the backbone of a single-agent network, under ``prefix``."""
+    if "VFE" in cfg:
+        _vfe(sd, params["vfe"], _sub(stats, "vfe"), cfg["VFE"], prefix)
+    if "BACKBONE_2D" in cfg:
+        _backbone(sd, params["backbone_2d"], _sub(stats, "backbone_2d"), cfg["BACKBONE_2D"], prefix)
+
+
+def _vfe(sd, vfe_p, vfe_s, vcfg, prefix=""):
     for i in range(len(list(vcfg["NUM_FILTERS"]))):
-        p, base = vfe_p[f"pfn_{i}"], f"vfe.pfn_layers.{i}"
+        p, base = vfe_p[f"pfn_{i}"], f"{prefix}vfe.pfn_layers.{i}"
         sd[f"{base}.linear.weight"] = _linear(p["linear"]["kernel"])
         if "bias" in p["linear"]:
             sd[f"{base}.linear.bias"] = _tensor(p["linear"]["bias"])
@@ -95,13 +118,13 @@ def _vfe(sd, vfe_p, vfe_s, vcfg):
             _put_bn(sd, f"{base}.norm", p["norm"], _sub(_sub(vfe_s, f"pfn_{i}"), "norm"))
 
 
-def _backbone(sd, bb_p, bb_s, bcfg):
+def _backbone(sd, bb_p, bb_s, bcfg, prefix=""):
     for l, n_layers in enumerate(list(bcfg["LAYER_NUMS"])):
         for k in range(n_layers + 1):
-            blk, base = f"block{l}_{k}", f"backbone_2d.blocks.{l}"
+            blk, base = f"block{l}_{k}", f"{prefix}backbone_2d.blocks.{l}"
             _put_conv(sd, f"{base}.{3 * k + 1}", bb_p[blk]["conv"])
             _put_bn(sd, f"{base}.{3 * k + 2}", bb_p[blk]["norm"], _sub(_sub(bb_s, blk), "norm"))
-        blk, base = f"deblock{l}", f"backbone_2d.deblocks.{l}"
+        blk, base = f"deblock{l}", f"{prefix}backbone_2d.deblocks.{l}"
         if blk in bb_p:
             if "deconv" in bb_p[blk]:
                 _put_conv(sd, f"{base}.0", bb_p[blk]["deconv"], _deconv)
@@ -142,6 +165,18 @@ def _corrector(sd, cp, cs):
     _put_bn(sd, "corrector.conv_weightor.0.1", cp["weightor_conv"]["norm"],
             _sub(_sub(cs, "weightor_conv"), "norm"))
     _put_conv(sd, "corrector.conv_weightor.1", cp["weightor_out"])
+
+
+def _disco(sd, fp, fs):
+    for block, names in (("compressor", (("conv0", "bn0"), ("conv1", None))),
+                         ("decompressor", (("conv0", "bn0"), ("conv1", None))),
+                         ("pixel_weightor", (("conv1_1", "bn1_1"), ("conv1_2", "bn1_2"),
+                                             ("conv1_4", None)))):
+        for conv, bn in names:
+            _put_conv(sd, f"v2x_mid_fusion.{block}.{conv}", fp[block][conv])
+            if bn is not None:
+                _put_bn(sd, f"v2x_mid_fusion.{block}.{bn}", fp[block][bn],
+                        _sub(_sub(fs, block), bn))
 
 
 def put_mlp(sd, prefix, params, stats):

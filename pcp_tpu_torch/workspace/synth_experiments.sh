@@ -5,9 +5,13 @@
 # async), evaluate lately_sync, lately_async, lately_async_noflow, early_sync,
 # early_async and the car, the six late-fusion rows (a host model on the
 # senders' exchanged boxes: NMS and weighted box fusion, sync and async,
-# async without flow and with oracle flow), then train and evaluate the
-# single-agent ego, and export the table to results/<tag>_torch/.
-# Counterpart of the lately, early, late and single stages of
+# async without flow and with oracle flow), train and evaluate the
+# single-agent ego, then train DiscoNet mid fusion async and sync (its
+# frozen BEV makers from this run's car, RSU and sync early-fusion
+# checkpoints) and evaluate it matched (disco_sync, disco_async) and
+# crossed (disco_xsync: async-trained on sync; disco_xasync: sync-trained
+# on async), and export the table to results/<tag>_torch/. Counterpart of
+# the lately, early, late, single and DiscoNet stages of
 # workspace/synth_experiments.sh.
 #
 #   SMOKE=1 pcp_tpu_torch/workspace/synth_experiments.sh   # tiny world, 2 epochs
@@ -18,7 +22,10 @@
 # tokens, and one written from another world would poison the ego's
 # training. WORKERS (default 4) is handed to the loaders. Stages write
 # markers into $OUTPUT_ROOT/stamps_<tag>, so a rerun resumes after the last
-# finished one; a failing stage stops the pipeline.
+# finished one; a failing stage stops the pipeline. ONLY, a bash regular
+# expression, runs just the stages whose names it matches (e.g.
+# ONLY='^(train_(car|rsu|early_sync|disco.*)|eval_(car|early_sync|disco.*))$'
+# for the DiscoNet rows and what they need).
 set -e
 cd "$(dirname "$0")/../.."
 
@@ -53,6 +60,7 @@ log() { echo "[$(date +%H:%M:%S)] $*"; }
 run_stage() {  # run_stage <name> <cmd...>
   local name=$1; shift
   if [ -f "$OUT/$name.done" ]; then log "skip $name (done)"; return 0; fi
+  if [ -n "$ONLY" ] && ! [[ $name =~ $ONLY ]]; then log "skip $name (not in ONLY)"; return 0; fi
   log "=== $name ==="
   local t0=$(date +%s.%N)
   "$@"
@@ -119,6 +127,20 @@ late late_async_oracleflow DATA_CONFIG.EXCHANGE_SETTING prev DATA_CONFIG.EXCHANG
 train train_single $EGO $EPOCHS_EGO ${TAG}_nocollab DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 \
   DATA_CONFIG.EXCHANGE_MODAR False
 ev single $EGO ${TAG}_nocollab DATA_CONFIG.EXCHANGE_MODAR False
+# mid fusion (DiscoNet): frozen makers from this run's car, RSU and sync
+# early ego; matched training per latency column, plus the cross cells
+DISCO=v2x_pointpillar_disco
+MAKERS=(MODEL.BEV_MAKER_RSU.CKPT "$(ckpt_of v2x_pointpillar_basic_rsu $TAG)"
+        MODEL.BEV_MAKER_CAR.CKPT "$(ckpt_of v2x_pointpillar_basic_car $TAG)"
+        MODEL.BEV_MAKER_EARLY.CKPT "$(ckpt_of $EARLY ${TAG}_sync)")
+train train_disco $DISCO $EPOCHS_EGO $TAG DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 \
+  DATA_CONFIG.EXCHANGE_PREVIOUS True "${MAKERS[@]}"
+train train_disco_sync $DISCO $EPOCHS_EGO ${TAG}_dsync DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO 1 \
+  DATA_CONFIG.EXCHANGE_PREVIOUS False "${MAKERS[@]}"
+ev disco_sync $DISCO ${TAG}_dsync DATA_CONFIG.EXCHANGE_PREVIOUS False
+ev disco_async $DISCO $TAG DATA_CONFIG.EXCHANGE_PREVIOUS True
+ev disco_xsync $DISCO $TAG DATA_CONFIG.EXCHANGE_PREVIOUS False
+ev disco_xasync $DISCO ${TAG}_dsync DATA_CONFIG.EXCHANGE_PREVIOUS True
 $PY -m pcp_tpu_torch.workspace.collect_results "$TAG" --output_root "$OUTPUT_ROOT" \
   $( [ -z "$SMOKE" ] && echo --export )
 log "ALL DONE"

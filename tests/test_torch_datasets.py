@@ -307,9 +307,10 @@ def test_not_ported_raise_naming_their_item():
     from pcp_tpu_torch.datasets.v2x_sim.source import NuScenesV2XSource
 
     _, tcfg = cfg_pair("v2x_sim_dataset_ego_early")
-    tcfg.DATASET = "V2XSimDataset_EGO_DISCO"
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_dataloader(tcfg, ["car"], batch_size=1, training=False, workers=0)
+    for name in ("KittiDataset", "NuScenesDataset", "CustomDataset"):
+        tcfg.DATASET = name
+        with pytest.raises(NotImplementedError, match="A11"):
+            build_dataloader(tcfg, ["car"], batch_size=1, training=False, workers=0)
     with pytest.raises(NotImplementedError, match="A11"):
         NuScenesV2XSource("data", "v2.0-trainval")
     with pytest.raises(NotImplementedError, match="A11"):

@@ -251,7 +251,14 @@ def test_car_sender_forward_matches_jax(car_pair):
 
 
 def test_oracle_corrector_raises_naming_a9():
+    """The oracle corrector was refused naming A9 until DiscoNet's slice
+    ported it; ``build_corrector`` now builds it beside HunterJr (held
+    against the JAX module in ``test_torch_disconet.py``), and a corrector
+    that neither package registers is refused."""
     from pcp_tpu_torch.models.bev_layers import build_corrector
+    from pcp_tpu_torch.models.bev_layers.oracle_corrector import OracleCorrector
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_corrector({"NAME": "OracleCorrector"}, TorchInfo(**info_kwargs(CAR_FEATURES)), 8)
+    info = TorchInfo(**info_kwargs(CAR_FEATURES))
+    assert isinstance(build_corrector({"NAME": "OracleCorrector"}, info, 8), OracleCorrector)
+    with pytest.raises(KeyError):
+        build_corrector({"NAME": "NoSuchCorrector"}, info, 8)

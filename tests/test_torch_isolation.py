@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no flax/optax/orbax, nothing of pcp_tpu.
 
 Checked two ways: a fresh interpreter imports the package, builds the ego
-and car models on the CPU, puts the car in training mode, imports the
-bench, the exchange's modules, the data pipeline (the early and late fusion
-datasets too), late fusion, the CLIs and the workspace scripts, reads a dataset item through the native host kernels
+and car models on the CPU, puts the car in training mode, builds DiscoNet
+(its frozen makers stay in eval mode when it trains), imports the bench, the
+exchange's modules, the data pipeline (the early, late and DiscoNet
+datasets too), late fusion, the teacher and the oracle corrector, the CLIs and the workspace scripts, reads a dataset item through the native host kernels
 (built into the port's own ``native/build/``), and a scan of every import
 statement in the package (``pcp_tpu_torch/bench.py`` included), in the
 measurement scripts under tools_torch/ and in chip_smoke.py. The entry
@@ -37,6 +38,12 @@ def test_fresh_interpreter_loads_no_jax():
         "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego_early\n"
         "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego_late\n"
         "import pcp_tpu_torch.models.detectors.v2x_late_fusion, pcp_tpu_torch.utils.nms_np\n"
+        "import pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_ego_disco\n"
+        "import pcp_tpu_torch.models.bev_layers.teacher, pcp_tpu_torch.models.bev_layers.oracle_corrector\n"
+        "from pcp_tpu_torch.entry import CFG_DISCO\n"
+        "cfg, info, model = build(CFG_DISCO, device='cpu')\n"
+        "model.train()\n"
+        "assert not model.bev_maker_car.training and model.v2x_mid_fusion.training\n"
         "import pcp_tpu_torch.tools.train, pcp_tpu_torch.tools.test\n"
         "import pcp_tpu_torch.workspace.v2x_gen_exchange_database\n"
         "import pcp_tpu_torch.workspace.collect_results\n"
