@@ -97,7 +97,12 @@ exits non-zero:
    lately ego and the sync early-fusion ego trained 2 epochs, the
    evaluations lately_sync, lately_async, early_sync and car, the late-fusion
    evaluations late_sync and late_sync_wnms (a host model on the exchanged
-   boxes), then the single-agent ego trained and evaluated. Each stage's
+   boxes), the lately ego evaluated with oracle senders swapped in
+   (lately_oracleswap_sync: every MoDAR row of its items must carry score 1)
+   and with each broadcast dropped with p 0.5 (lately_drop05_async: more
+   agents must send the ego no MoDAR row than in lately_async, by the
+   items' ``metadata["exchange"]``), then the single-agent ego trained and
+   evaluated. Each stage's
    seconds and kernel launches (every launch count at 0 before it; a
    network stage must launch ``bev_scatter_max`` and no other kernel, a
    late-fusion stage none); for training the steps, the median data and
@@ -108,8 +113,9 @@ exits non-zero:
    sync early checkpoints: the saved makers must hold those checkpoints'
    VFE and backbone tensors, bitwise) and evaluated (``eval_disco_sync``).
    B1 on the inputs of the lately ego's, the early ego's and DiscoNet's
-   first training step (its RSU maker's branch) against its plain version
-   (exact), timed there.
+   first training step (its RSU maker's branch) and of the oracle-swap and
+   dropout evaluations' first batch against its plain version (exact),
+   timed there.
 10. disco (run after phase 8, before phase 9): DiscoNet mid fusion at full
    width on the card, seeded weights, b4 x 32768 merged clouds of six agents
    from the DiscoNet dataset on a few scenes of the synvf world, agent 3
@@ -1756,7 +1762,9 @@ def _pipeline_stages(root):
     senders, their exchange passes, the lately ego and the sync early-fusion
     ego, the evaluations lately_sync, lately_async, early_sync and car, the
     late-fusion evaluations late_sync (NMS) and late_sync_wnms (weighted box
-    fusion), then the single-agent ego and its evaluation."""
+    fusion), the lately ego fed oracle senders (lately_oracleswap_sync) and
+    with half the broadcasts dropped (lately_drop05_async), then the
+    single-agent ego and its evaluation."""
     from pcp_tpu_torch.tools import test as test_cli
     from pcp_tpu_torch.tools import train as train_cli
     from pcp_tpu_torch.workspace import v2x_gen_exchange_database as genx
@@ -1815,15 +1823,21 @@ def _pipeline_stages(root):
             ev("late_sync", late, "smoke", "DATA_CONFIG.EXCHANGE_SETTING", "now"),
             ev("late_sync_wnms", late, "smoke", "DATA_CONFIG.EXCHANGE_SETTING", "now",
                "MODEL.BOX_FUSION_METHOD", "weighted_nms"),
+            ev("lately_oracleswap_sync", ego, "smoke", "DATA_CONFIG.EXCHANGE_ORACLE", "True",
+               "DATA_CONFIG.EXCHANGE_NOW", "True"),
+            ev("lately_drop05_async", ego, "smoke", "DATA_CONFIG.EXCHANGE_DROPOUT", "0.5"),
             train("train_single", ego, "smoke_nocollab", 1, *single),
             ev("single", ego, "smoke_nocollab", *single),
             train("train_disco_sync", DISCO_CFG, "smoke_dsync", 1, *sync, *makers),
             ev("disco_sync", DISCO_CFG, "smoke_dsync", *sync)]
 
 
-# the stages whose first training scatter phase 9 keeps for B1's check, and
-# the record's key of each check (DiscoNet's first is its RSU maker's branch)
+# the stages whose first scatter (a training step's, an eval batch's) phase 9
+# keeps for B1's check, and the record's key of each check (DiscoNet's first
+# is its RSU maker's branch)
 B1_CHECKS = {"train_ego": "bev_scatter_max", "train_early_sync": "bev_scatter_max_early",
+             "eval_lately_oracleswap_sync": "bev_scatter_max_oracleswap",
+             "eval_lately_drop05_async": "bev_scatter_max_drop05",
              "train_disco_sync": "bev_scatter_max_disco"}
 # DiscoNet's frozen makers in phase 9: (config, train tag) of the checkpoint
 # each takes
@@ -1852,11 +1866,66 @@ def check_overlay(root):
     return compared
 
 
+def eval_items(argv):
+    """(config, items of the test split) of an eval stage's argv, as its
+    CLI builds them."""
+    from pcp_tpu_torch.datasets import build_dataloader
+    from pcp_tpu_torch.tools import test as test_cli
+    from pcp_tpu_torch.tools.train import load_cfg
+
+    cfg, _ = load_cfg(test_cli.parse_args(argv))
+    ds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=1, workers=0,
+                                training=False)
+    return cfg, [ds[i] for i in range(len(ds))]
+
+
+def silent_agents(argv):
+    """(agents that sent the ego no MoDAR row, agents in all) over the
+    items of an eval stage, from each item's ``metadata["exchange"]``."""
+    _, items = eval_items(argv)
+    counts = [v[1] for item in items for v in item["metadata"]["exchange"].values()]
+    return sum(c == 0 for c in counts), len(counts)
+
+
+def oracle_scores(name, stages):
+    """Under oracle senders every MoDAR row of the stage's items has score
+    1. Returns the record."""
+    cfg, items = eval_items(stages[name])
+    features = list(cfg.DATA_CONFIG.POINT_FEATURE_ENCODING.used_feature_list)
+    points = np.concatenate([item["points"] for item in items])
+    modar = points[:, features.index("box_label")] > 0
+    scores = points[modar, features.index("box_score")]
+    if not modar.any() or not (scores == 1.0).all():
+        raise AssertionError(f"pipeline {name}: {modar.sum()} MoDAR rows, scores "
+                             f"{np.unique(scores)[:8]} (1 required)")
+    log("pipeline", f"{name}: {int(modar.sum())} MoDAR rows in {len(items)} items, every score 1")
+    return {"modar_rows": int(modar.sum()), "items": len(items)}
+
+
+def dropped_broadcasts(name, stages):
+    """Under broadcast dropout more agents send the ego nothing than in
+    lately_async. Returns the record."""
+    dropped, agents = silent_agents(stages[name])
+    base, _ = silent_agents(stages["eval_lately_async"])
+    if dropped <= base:
+        raise AssertionError(f"pipeline {name}: {dropped} of {agents} agents sent nothing, "
+                             f"{base} in lately_async (more required)")
+    log("pipeline", f"{name}: {dropped} of {agents} agents sent the ego no MoDAR row, "
+                    f"{base} in eval_lately_async")
+    return {"silent_agents": dropped, "agents": agents, "silent_agents_lately_async": base}
+
+
+# the eval stages of phase 9 whose exchange is checked, and the check of each
+EXCHANGE_CHECKS = {"eval_lately_oracleswap_sync": oracle_scores,
+                   "eval_lately_drop05_async": dropped_broadcasts}
+
+
 def phase_pipeline():
     """Phase 9: the SMOKE=1 pipeline through the port's CLIs on the card, in
     ``build/pipeline``, then DiscoNet from its checkpoints. Returns the
-    record of each stage, the overlay check and B1's checks on the lately
-    ego's, the early ego's and DiscoNet's training inputs."""
+    record of each stage (the two exchange checks too), the overlay check
+    and B1's checks on the lately ego's, the early ego's and DiscoNet's
+    training inputs and the oracle-swap and dropout evaluations' inputs."""
     import shutil
 
     from pcp_tpu_torch.models.vfe import dynamic_pillar_vfe as vfe_module
@@ -1864,10 +1933,11 @@ def phase_pipeline():
 
     root = REPO / "build" / "pipeline"
     shutil.rmtree(root, ignore_errors=True)
-    record, seen = {}, {}
+    record, seen, stages = {}, {}, {}
     scatter = vfe_module.bev_scatter_max_sorted
 
     for name, kind, main_fn, argv, run_dir in _pipeline_stages(root):
+        stages[name] = argv()
         def spy(feats, pids, h, w, name=name):  # the stage's first training scatter
             if name not in seen:
                 seen[name] = (feats.detach().clone(), pids.clone(), h, w)
@@ -1919,13 +1989,16 @@ def phase_pipeline():
             detail = ", ".join(f"{k} {rec[k]:.6f}" for k in keys if k in rec)
         record[name] = rec
         log("pipeline", f"{name}: {seconds:.3f} s; {detail}; kernel launches {launches}")
+        if name in EXCHANGE_CHECKS:
+            rec["exchange"] = EXCHANGE_CHECKS[name](name, stages)
 
     record["disco_overlay"] = {"tensors": check_overlay(root)}
     log("pipeline", f"train_disco_sync: its makers hold the {record['disco_overlay']['tensors']} VFE "
                     "and backbone tensors of the car, RSU and sync early checkpoints, bitwise")
     for stage, key in B1_CHECKS.items():
         feats, pids, h, w = seen[stage]
-        record[key] = b1_on_inputs("pipeline", f"{stage}'s first step's", feats, pids, h, w)
+        first = "batch's" if stage.startswith("eval_") else "step's"
+        record[key] = b1_on_inputs("pipeline", f"{stage}'s first {first}", feats, pids, h, w)
     total = sum(r["seconds"] for k, r in record.items() if "seconds" in r)
     log("pipeline", f"stages {len(record) - len(B1_CHECKS) - 1}, {total:.3f} s in all")
     return record

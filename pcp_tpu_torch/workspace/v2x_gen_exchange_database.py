@@ -97,6 +97,22 @@ def gen_exchange_database(agent="car", ckpt=None, synthetic=False, out_dir=None,
     return written
 
 
+def data_overrides(pairs):
+    """DATA_CONFIG overrides from ``--set`` KEY VALUE pairs, each value
+    read as a Python literal where it is one; None for no pairs."""
+    if not pairs:
+        return None
+    if len(pairs) % 2:
+        raise ValueError(f"--set expects KEY VALUE pairs, got {pairs}")
+    overrides = {}
+    for k, v in zip(pairs[0::2], pairs[1::2]):
+        try:
+            overrides[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            overrides[k] = v
+    return overrides
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="write a sender's exchange database")
     parser.add_argument("--agent", choices=["car", "rsu"], default="car")
@@ -110,17 +126,8 @@ def main(argv=None):
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER,
                         help="DATA_CONFIG overrides as KEY VALUE pairs")
     args = parser.parse_args(argv)
-    overrides = None
-    if args.set_cfgs:
-        assert len(args.set_cfgs) % 2 == 0, "--set expects KEY VALUE pairs"
-        overrides = {}
-        for k, v in zip(args.set_cfgs[0::2], args.set_cfgs[1::2]):
-            try:
-                overrides[k] = ast.literal_eval(v)
-            except (ValueError, SyntaxError):
-                overrides[k] = v
     return gen_exchange_database(args.agent, args.ckpt, args.synthetic, args.out_dir,
-                                 cfg_overrides=overrides,
+                                 cfg_overrides=data_overrides(args.set_cfgs),
                                  broadcast_score_thresh=args.broadcast_score_thresh,
                                  broadcast_post_max=args.broadcast_post_max, device=args.device,
                                  workers=args.workers)
