@@ -134,14 +134,39 @@ exits non-zero:
    buffers bitwise unchanged and without gradients; the step's time, its
    split (the makers' forward from the stages, the ego's forward and loss,
    backward, optimizer), the training forward's stages and peak memory.
+11. serving (run after phase 8): the trained ego at b8 x 32768 on the
+   bench's first batch under each of the bench's serving modes
+   (``pcp_tpu_torch/bench.py``: ``--fold-bn``, ``--wpack``, both,
+   ``--bf16``, ``--bf16 --fold-bn``, ``--pre-reduce 1``, ``--pre-reduce
+   fused``), TF32 off: each mode's counted forward (deterministic) launches
+   its kernel once; FOLD_BN and W_PACK equal the float32 forward within the
+   CPU tests' tolerances (2e-5, 1e-5, 1e-4 both) with the surviving boxes
+   matched under the margin rule; BF16's hm logits within max 0.2, mean
+   0.02 of float32's, with the share of float32 boxes a BF16 box matches;
+   the ``PRE_REDUCE`` modes' BEV and boxes equal float32's and B2 / B3
+   exact against their plain versions on the forward's own inputs, timed
+   there. One bench timing (8 batches, best of 2) and the stages a mode.
+12. dp (after phase 11): ``entry.dryrun_multichip`` over NCCL on every
+   card (the JAX package's gate: full grid, one sample a rank, the staged
+   boxflow database, three steps with the loss falling, a merged eval), then
+   two ranks sharing the card over gloo on CUDA tensors against one
+   process on the same b2 x 32768 batch at full width, TF32 off in every
+   process: in float32 through B1 (one launch a rank a step) the loss,
+   terms, statistics, gradient and parameters after the Adam step, against
+   the standard one-process step and, tighter, against the one-process
+   step rounding as the ranks do; in float64 (the scatter's plain version)
+   everything within 1e-9; the ranks bitwise equal; the step's time.
 
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
 ``"sender_train"``, the trained ego's under ``"trained_ego"``, the bench's
-profile under ``"bench_profile"``, phase 10's under ``"disco"`` and phase
-9's under ``"pipeline"``; each kernel's launches in each pipeline stage under
+profile under ``"bench_profile"``, phase 11's under ``"serving"``, phase
+12's under ``"dp"``, phase 10's under ``"disco"`` and phase 9's under
+``"pipeline"``; each kernel's launches in each pipeline stage under
 ``"launches_in_pipeline"``, in a DiscoNet eval forward and train step under
-``"launches_per_disco_eval_forward"`` and ``"..._train_step"``),
+``"launches_per_disco_eval_forward"`` and ``"..._train_step"``, in a
+serving mode's forward under ``"launches_per_serving_forward"`` and in a
+rank's DP step under ``"launches_per_dp_step_per_rank"``),
 the card as nvidia-smi names it, and
 ``{"ok": true, "device": ...}``; the bench's line comes just before them.
 Without a CUDA device the script exits 1 and prints no result.
@@ -1747,6 +1772,407 @@ def phase_bench(card):
 
 
 
+
+# ------------------------------------------------------- 11. serving modes
+
+# (name, the bench's flags, the kernel its forward launches once)
+SERVING_MODES = [("f32", [], "bev_scatter_max"),
+                 ("fold_bn", ["--fold-bn"], "bev_scatter_max"),
+                 ("wpack", ["--wpack"], "bev_scatter_max"),
+                 ("fold_bn_wpack", ["--fold-bn", "--wpack"], "bev_scatter_max"),
+                 ("bf16", ["--bf16"], "bev_scatter_max"),
+                 ("bf16_fold_bn", ["--bf16", "--fold-bn"], "bev_scatter_max"),
+                 ("pre_reduce_1", ["--pre-reduce", "1"], "bev_scatter_tails"),
+                 ("pre_reduce_fused", ["--pre-reduce", "fused"], "bev_scatter_fused")]
+# against the f32 forward, rtol = atol, on the backbone's and the head's
+# outputs: the CPU tests' tolerances (tests/test_torch_serving_modes.py)
+SERVING_TOL = {"fold_bn": 2e-5, "wpack": 1e-5, "fold_bn_wpack": 1e-4}
+# BF16's hm logits against f32's: tests/test_model_forward.py::TestBF16Mode
+BF16_HM_BOUND = {"max": 0.2, "mean": 0.02}
+BF16_MATCH_M = 0.5  # a BF16 box matches an f32 box whose centre lies this close (BEV)
+SERVING_TIMED = 8  # bench batches a timing pass
+
+
+def _excess(got, want, tol):
+    """The largest ``|got - want| - (tol + tol * |want|)`` (positive where
+    the pair fails allclose at rtol = atol = tol) and the largest error."""
+    diff = (got.float() - want.float()).abs()
+    return (diff - tol - tol * want.float().abs()).max().item(), diff.max().item()
+
+
+def bf16_box_share(got, want):
+    """Of ``want``'s valid boxes, the share that a valid box of ``got`` of
+    the same label has within BF16_MATCH_M metres (BEV centres)."""
+    hits = total = 0
+    for i in range(want["pred_boxes"].shape[0]):
+        wv, gv = want["pred_valid"][i], got["pred_valid"][i]
+        wb, gb = want["pred_boxes"][i][wv], got["pred_boxes"][i][gv]
+        wl, gl = want["pred_labels"][i][wv], got["pred_labels"][i][gv]
+        total += wb.shape[0]
+        if wb.shape[0] and gb.shape[0]:
+            dist = torch.cdist(wb[:, :2].float(), gb[:, :2].float())
+            dist = torch.where(wl[:, None] == gl[None, :], dist, float("inf"))
+            hits += int((dist.min(1).values < BF16_MATCH_M).sum())
+    return hits / max(total, 1), total
+
+
+def kernel_on_inputs(phase, what, kernel, feats, pids, h, w):
+    """``kernel`` (a name of ``kernel_table``) on the inputs a forward gave
+    the VFE's scatter: exact against its plain version, and timed there.
+    Returns the record."""
+    from pcp_tpu_torch.ops import bev_scatter as bs
+
+    (_, _, _, alone, prep, rtol), = [row for row in kernel_table(bs) if row[0] == kernel]
+    cuda_fn, plain_fn = getattr(bs, alone + "_cuda"), getattr(bs, alone + "_plain")
+    with torch.inference_mode():
+        args = prep(feats, pids)
+        err = _hold(cuda_fn(*args, h, w), plain_fn(*args, h, w), rtol,
+                    f"{what} {kernel} inputs: kernel vs its plain version")
+        kernel_ms = cuda_ms(lambda: cuda_fn(*args, h, w))
+        device_ms = cuda_ms(lambda: cuda_fn(*args, h, w), reps=5)
+        plain_ms = cuda_ms(lambda: plain_fn(*args, h, w))
+    bytes_moved, t_bytes, t_ops = scatter_bound(
+        args[0], pids, h * w, args[2] if kernel == "bev_scatter_tails" else None)
+    bound_ms = max(t_bytes, t_ops)
+    log(phase, f"{what} {kernel} inputs {tuple(feats.shape)} on {h}x{w}: max_abs_err {err} "
+               f"(exact equality required); kernel_ms {kernel_ms:.6f} (5 launches a timing: "
+               f"device_ms {device_ms:.6f}) plain_ms {plain_ms:.6f} bound_ms {bound_ms:.6f} "
+               f"({bytes_moved} bytes)")
+    return {"max_abs_err": err, "ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
+
+
+def phase_serving():
+    """The trained ego at b8 x 32768 on the bench's first batch under each
+    of the bench's serving modes (``SERVING_MODES``), TF32 off. Each mode's
+    counted forward runs under deterministic algorithms and launches its
+    kernel once. FOLD_BN and W_PACK are held to the f32 forward at
+    SERVING_TOL with the surviving boxes matched under the margin rule;
+    BF16's hm logits to BF16_HM_BOUND, with the share of f32 boxes that a
+    BF16 box matches reported; the PRE_REDUCE modes' BEV and boxes equal the
+    f32 forward's and their kernel is exact against its plain version on the
+    forward's own inputs. Then one bench timing a mode (``time_batches`` over
+    SERVING_TIMED batches) and the forward's stages (``stage_ms``). Returns
+    ({mode: launches of each kernel in its forward}, the record)."""
+    from pcp_tpu_torch import bench
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.utils.box_match import match_surviving_boxes
+
+    launches, record, ref, batches, failures = {}, {}, None, None, []
+    for name, flags, kernel in SERVING_MODES:
+        args = bench.parse_args(flags)
+        cfg, info, model = bench.load_trained_ego("cuda", args)
+        if batches is None:
+            batches = bench.bench_batches(args.occupancy, info.num_point_features)[:SERVING_TIMED]
+        batch = batches[0]
+        pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+        post_max = int(pp.NMS_CONFIG.NMS_POST_MAXSIZE)
+        seen, scatter = [], model.vfe.scatter_max
+        model.vfe.scatter_max = lambda *a: seen.append(a) or scatter(*a)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with torch.inference_mode():
+            bs.reset_launches()
+            out = model(batch)
+            torch.cuda.synchronize()
+            counts = dict(bs.launches)
+        torch.use_deterministic_algorithms(False)
+        model.vfe.scatter_max = scatter
+        launches[name] = counts
+        if counts != {k: int(k == kernel) for k in counts}:
+            raise AssertionError(f"serving {name}: expected one launch of {kernel}, got {counts}")
+        fbd = out["final_box_dicts"]
+        heads = out["head_preds"][0]
+        if (out["spatial_features_2d"].dtype != torch.float32
+                or any(v.dtype != torch.float32 for v in heads.values())
+                or tuple(fbd["pred_boxes"].shape) != (B, post_max, 7)
+                or not torch.isfinite(fbd["pred_boxes"]).all() or not fbd["pred_valid"].any()):
+            raise AssertionError(f"serving {name}: outputs not float32, finite boxes of "
+                                 f"({B}, {post_max}, 7) with some valid")
+        rec = {"flags": flags, "launches": counts,
+               "valid_boxes": fbd["pred_valid"].sum(1).tolist()}
+        if ref is None:
+            ref = {"bev": out["spatial_features"], "bev2d": out["spatial_features_2d"],
+                   "heads": heads, "boxes": fbd}
+        elif name in SERVING_TOL:
+            tol = SERVING_TOL[name]
+            errs = {"spatial_features_2d": _excess(out["spatial_features_2d"], ref["bev2d"], tol)}
+            errs.update({k: _excess(v, ref["heads"][k], tol) for k, v in heads.items()})
+            n_matched = 0
+            try:
+                for i in range(B):
+                    heat = torch.sigmoid(ref["heads"]["hm"][i].double()).cpu().numpy().reshape(-1)
+                    n_matched += match_surviving_boxes(
+                        {k: v[i].cpu().numpy() for k, v in fbd.items()},
+                        {k: v[i].cpu().numpy() for k, v in ref["boxes"].items()}, heat,
+                        top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH),
+                        post_max=post_max)
+            except AssertionError as e:
+                failures.append(f"{name}: boxes: {e}")
+            rec.update(tol=tol, max_abs_err={k: v[1] for k, v in errs.items()},
+                       boxes_matched=n_matched)
+            log("serving", f"{name} vs f32 (rtol = atol = {tol}): max_abs_err "
+                           + ", ".join(f"{k} {v[1]:.3e}" for k, v in errs.items())
+                           + f"; {n_matched} surviving boxes matched under the margin rule")
+            failures += [f"{name}: {k} beyond rtol = atol = {tol} by {v[0]:.3e}"
+                         for k, v in errs.items() if v[0] > 0]
+        elif name.startswith("bf16"):
+            d = (heads["hm"] - ref["heads"]["hm"]).abs()
+            share, total = bf16_box_share(fbd, ref["boxes"])
+            rec.update(hm_max=d.max().item(), hm_mean=d.mean().item(), f32_boxes=total,
+                       f32_boxes_matched_share=share)
+            log("serving", f"{name} vs f32: hm logits max_abs_err {d.max().item():.6f} "
+                           f"(bound {BF16_HM_BOUND['max']}), mean {d.mean().item():.6f} (bound "
+                           f"{BF16_HM_BOUND['mean']}); {share:.6f} of the {total} f32 boxes "
+                           f"matched by a BF16 box of the same label within {BF16_MATCH_M} m")
+            if d.max().item() >= BF16_HM_BOUND["max"] or d.mean().item() >= BF16_HM_BOUND["mean"]:
+                failures.append(f"{name}: hm logits beyond {BF16_HM_BOUND}")
+        else:
+            _hold(out["spatial_features"], ref["bev"], 0.0, f"serving {name}: BEV vs f32's")
+            for key, value in ref["boxes"].items():
+                if not torch.equal(fbd[key], value):
+                    failures.append(f"{name}: {key} differs from the f32 forward's")
+            (feats, pids, h, w), = seen
+            rec["kernel_on_bench_input"] = kernel_on_inputs(
+                "serving", f"{name}: the bench forward's", kernel, feats, pids, h, w)
+            log("serving", f"{name}: BEV equal to the f32 forward's, final boxes identical")
+        del seen
+        ms = bench.time_batches(model, batches, reps=2)
+        with torch.inference_mode():
+            stages = stage_ms(serving_stages(model), batch)
+        rec.update(ms_per_batch=ms, clouds_per_s=B / ms * 1e3, stages_ms=stages)
+        log("serving", f"{name}: bench timing ({len(batches)} b{B} batches back to back, best of "
+                       f"2): {ms:.6f} ms a batch, {B / ms * 1e3:.3f} clouds/s; stages (median ms "
+                       "of 10): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+        record[name] = rec
+        del model, out
+    if failures:
+        raise AssertionError("serving modes: " + "; ".join(failures))
+    return launches, record
+
+
+# ------------------------------------------------------------ 12. data parallel
+
+DP_WORLD, DP_B = 2, 2  # ranks sharing the card over gloo; the global batch
+DP_TIMED = 3  # float32 steps timed after the compared one
+# The 2-rank step against the 1-process step, on the same card with TF32
+# off in every process. In float32 a rank convolves b1 where one process
+# convolves b2, so cuDNN may pick another algorithm, and a rank takes its
+# BN sums over its share before the all-reduce adds them: rounding apart
+# (the loss 1.9e-7, the gradient's L2 error over all leaves 3.0e-3 on an
+# H100). The standard one-process step is held at DP_F32_TOL. The same step
+# arranged to round as the ranks do (``_like_ranks``) closes that (the
+# loss equal, the gradient 3.9e-6) and is held at DP_LIKE_RANKS_TOL. Both
+# hold the gradient's L2 error over all leaves and its worst entry over its
+# leaf's largest |g|. The parameters after the first Adam step are held
+# within DP_ADAM_FLIP learning rates: that step moves an entry by about lr
+# whatever its gradient's size, so a gradient within rounding of 0 may
+# step the other way. In float64 (the scatter's plain version: B1 takes
+# float32 only) the standard step is held at DP_F64_TOL: the loss, terms
+# and statistics relative, every gradient entry over its leaf's largest
+# |g|, every parameter after the Adam step; the conv biases in front of a
+# BN (gradient 0 in exact arithmetic, so rounding picks their first Adam
+# step's sign) within two learning rates.
+DP_F32_TOL = {"loss": 1e-6, "tb": 1e-6, "stats": 1e-6, "grad_l2": 1e-2, "grad_entry": 0.2}
+DP_LIKE_RANKS_TOL = {"loss": 1e-6, "tb": 1e-6, "stats": 1e-6, "grad_l2": 5e-5,
+                     "grad_entry": 5e-4}
+DP_F64_TOL, DP_ADAM_FLIP = 1e-9, 2.1
+
+
+def _like_ranks(model):
+    """Makes a one-process training step round as DP_WORLD ranks, each with
+    its share of the batch, do: every conv and transposed conv of the
+    backbone and the head, and every linear of the VFE, takes one share at
+    a time (cuDNN and cuBLAS pick their algorithms by shape), and every BN
+    trains through the global batch's two-pass sums, each sum taken share by
+    share and then added, as the all-reduce adds them. Returns the function
+    that puts the BNs' sums back."""
+    from pcp_tpu_torch.models.model_utils import norm
+
+    def by_share(f):
+        return lambda x: torch.cat([f(p) for p in x.chunk(DP_WORLD)])
+
+    def bn_forward(m, x):
+        m.num_batches_tracked.add_(1)
+        return m._global_batch_forward(x)
+
+    for name, m in model.named_modules():
+        if name.startswith(("backbone_2d.", "dense_head.")):
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.forward = by_share(m.forward)
+            elif isinstance(m, norm.BatchNorm2d):
+                m.forward = lambda x, m=m: bn_forward(m, x)
+        elif name.startswith("vfe.") and isinstance(m, torch.nn.Linear):
+            m.forward = by_share(m.forward)
+    rank_sum = norm.rank_sum
+    norm.rank_sum = lambda t, dim: sum(p.sum(dim) for p in t.chunk(DP_WORLD))
+    return lambda: setattr(norm, "rank_sum", rank_sum)
+
+
+def _dp_step(seed, batch, device, dtype=torch.float32, like_ranks=False, timed=0):
+    """One train step of the full-width ego from ``seed`` on ``batch``
+    (this rank's share under a process group), deterministic, then
+    ``timed`` more, timed on the host's clock (the first pays for cuDNN's
+    choices). ``like_ranks``: rounding as DP_WORLD ranks do
+    (``_like_ranks``). Returns the record, the state and the gradients
+    after the first step on the CPU, and its learning rate."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.parallel import replicate_state
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg, _, model = build(CFG_EGO, device=device)
+    model.to(dtype)
+    if dtype == torch.float64:  # B1 takes float32 only: its plain version, on the card
+        model.vfe.scatter_max = lambda f, p, h, w: bs.ScatterMax.apply(
+            f, p, h, w, bs.bev_scatter_max_sorted_plain, 0.0)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
+                                   total_epochs=1)
+    replicate_state(create_train_state(model, optimizer, seed))
+    step = make_train_step(model, optimizer)
+    batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in _on(batch, device).items()}
+    restore = _like_ranks(model) if like_ranks else (lambda: None)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    bs.reset_launches()
+    try:
+        loss, tb = step(batch)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    counts = dict(bs.launches)
+    torch.use_deterministic_algorithms(False)
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        float(step(batch)[0])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return ({"loss": float(loss), "tb": {k: float(v) for k, v in tb.items()}, "launches": counts,
+             "step_ms": times}, state, grads, optimizer.lr_fn(0))
+
+
+def _dp_rank(rank, seed, tmp, host):
+    """A rank of the 2-rank check: ``_dp_step`` in float32 and in float64 on
+    its share of ``host`` over gloo, written to ``{tmp}/rank{rank}.pt``."""
+    from pcp_tpu_torch.parallel import process_group, shard_batch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # a spawned process starts from torch's defaults, where cuDNN convolves
+    # float32 in TF32: off, as phase 1 has it for the one process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with process_group(rank, DP_WORLD, f"file://{tmp}/rendezvous", "gloo"):
+        share = shard_batch(host, rank, DP_WORLD)
+        out = {str(dtype): _dp_step(seed, share, "cuda", dtype,
+                                    timed=DP_TIMED if dtype == torch.float32 else 0)[:3]
+               for dtype in (torch.float32, torch.float64)}
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def dp_errors(one, ranks, params, zero_grad):
+    """The ranks' step against one process's: loss and terms (relative),
+    running statistics, gradient entries over their leaf's largest |g| (and
+    the leaf where that is worst), the gradients' L2 error over all leaves,
+    parameters after the step, the conv biases in front of a BN apart; and
+    whether the ranks agree bitwise."""
+    (rec, state, grads), (rrec, rstate, rgrads) = one, ranks[0]
+    num = sum(float((rgrads[k] - grads[k]).double().pow(2).sum()) for k in params)
+    den = sum(float(grads[k].double().pow(2).sum()) for k in params)
+    entry = {k: (rgrads[k] - grads[k]).abs().max().item() / max(grads[k].abs().max().item(), 1e-30)
+             for k in params - zero_grad}
+    worst = max(entry, key=entry.get)
+    return {"loss": abs(rrec["loss"] - rec["loss"]) / abs(rec["loss"]),
+            "tb": max(abs(rrec["tb"][k] - v) / max(abs(v), 1e-30) for k, v in rec["tb"].items()),
+            "stats": max((rstate[k] - v).abs().max().item() / max(v.abs().max().item(), 1.0)
+                         for k, v in state.items() if "running_" in k),
+            "grad_entry": entry[worst], "grad_worst_leaf": worst,
+            "grad_l2": (num / den) ** 0.5,
+            "params": max((rstate[k] - state[k]).abs().max().item() for k in params - zero_grad),
+            "zero_grad_biases": max([(rstate[k] - state[k]).abs().max().item()
+                                     for k in zero_grad] or [0.0]),
+            "ranks_bitwise_equal": all(torch.equal(ranks[0][1][k], r[1][k])
+                                       for r in ranks[1:] for k in state)}
+
+
+def phase_dp(seed):
+    """Data-parallel training of the ego: ``entry.dryrun_multichip`` at the
+    card count over NCCL, then DP_WORLD ranks sharing the card over gloo on
+    CUDA tensors against one process, on the same b2 batch at full width,
+    in float32 through B1 (one launch a rank a step), the one process
+    standard and rounding as the ranks do, and in float64 (see DP_*), and
+    the float32 step's time. Returns (launches of each kernel per rank per
+    DP step, the record)."""
+    import tempfile
+
+    from pcp_tpu_torch.entry import build, dryrun_multichip
+    from pcp_tpu_torch.train.train_state import biases_before_bn
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    gate = dryrun_multichip(n, backend="nccl", device="cuda")
+    gate_s = time.perf_counter() - t0
+    log("dp", f"dryrun_multichip({n}) over NCCL: {gate_s:.1f} s; losses {gate['losses']}, "
+              f"MoDAR rows per rank {gate['modar_rows_per_rank']}, merged eval "
+              f"{gate['merged_eval']} samples")
+
+    _, info, model = build(CFG_EGO, device="cpu")
+    zero_grad, params = biases_before_bn(model), {k for k, _ in model.named_parameters()}
+    del model
+    host = train_batch(np.random.default_rng(seed + 5), DP_B, N, info)
+    f32, f64 = str(torch.float32), str(torch.float64)
+    one, seconds = {}, {"gate": gate_s}
+    for key, dtype, like in ((f32, torch.float32, False), (f64, torch.float64, False),
+                             ("like_ranks", torch.float32, True)):
+        t0 = time.perf_counter()
+        *one[key], lr = _dp_step(seed, host, "cuda", dtype, like_ranks=like,
+                                 timed=DP_TIMED if key == f32 else 0)
+        seconds[f"one_process_{key}"] = time.perf_counter() - t0
+    (REPO / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        torch.multiprocessing.spawn(_dp_rank, args=(seed, tmp, host), nprocs=DP_WORLD, join=True)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    seconds["ranks_both_dtypes"] = time.perf_counter() - t0
+    log("dp", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    errs = {k: dp_errors(one[k], [r[k if k != "like_ranks" else f32] for r in ranks], params,
+                         zero_grad) for k in one}
+    # two one-process float32 steps that differ in rounding alone
+    errs["one_vs_like_ranks"] = dp_errors(one[f32], [one["like_ranks"]], params, zero_grad)
+    what = {f32: f"float32: {DP_WORLD} ranks over gloo on CUDA tensors (one card) vs one process",
+            f64: f"float64: {DP_WORLD} ranks vs one process",
+            "like_ranks": f"float32: {DP_WORLD} ranks vs one process rounding as the ranks do",
+            "one_vs_like_ranks": "float32: one process rounding as the ranks do vs one process"}
+    rank_launches = [r[f32][0]["launches"] for r in ranks]
+    for key, e in errs.items():
+        log("dp", f"{what[key]}, b{DP_B} x {N}, full width: loss rel err {e['loss']:.3e}, terms "
+                  f"{e['tb']:.3e}, running statistics {e['stats']:.3e}, gradient entries "
+                  f"{e['grad_entry']:.3e} of their leaf's largest |g| (worst {e['grad_worst_leaf']}; "
+                  f"L2 over all leaves {e['grad_l2']:.3e}), parameters after the step "
+                  f"{e['params']:.3e}, conv biases before a BN {e['zero_grad_biases']:.3e} (lr "
+                  f"{lr:.3e}); ranks bitwise equal: {e['ranks_bitwise_equal']}")
+    single = one[f32][0]
+    log("dp", f"float32 launches a rank a step {rank_launches}; step time (host clock, {DP_TIMED} "
+              f"steps after the compared one): one process b{DP_B} {single['step_ms']} ms; each of "
+              f"{DP_WORLD} ranks sharing the card, b{DP_B // DP_WORLD} a rank: "
+              + "; ".join(str(r[f32][0]["step_ms"]) for r in ranks))
+    limits = [(errs[key], k, lim) for key, tol in ((f32, DP_F32_TOL),
+                                                   ("like_ranks", DP_LIKE_RANKS_TOL))
+              for k, lim in {**tol, "params": DP_ADAM_FLIP * lr}.items()] + [
+        (errs[f64], k, DP_F64_TOL) for k in ("loss", "tb", "stats", "grad_entry", "params")] + [
+        (errs[f64], "zero_grad_biases", 2 * lr)]
+    bad = [(k, e[k], lim) for e, k, lim in limits if not e[k] <= lim]
+    if bad or not (errs[f32]["ranks_bitwise_equal"] and errs[f64]["ranks_bitwise_equal"]):
+        raise AssertionError(f"dp: beyond tolerance {bad}; ranks bitwise equal "
+                             f"{errs[f32]['ranks_bitwise_equal']}, "
+                             f"{errs[f64]['ranks_bitwise_equal']}")
+    for counts in rank_launches + [single["launches"], one["like_ranks"][0]["launches"]]:
+        if counts != {k: int(k == "bev_scatter_max") for k in counts}:
+            raise AssertionError(f"dp: expected one bev_scatter_max launch a step, got {counts}")
+    record = {"gate": gate, "seconds": seconds, "backend": "gloo on CUDA tensors, one card",
+              "errors": errs, "single_f32": single, "ranks_f32": [r[f32][0] for r in ranks]}
+    return rank_launches[0], record
+
 # ------------------------------------------------------------ 9. pipeline
 
 # the SMOKE=1 world, points and epochs of workspace/synth_experiments.sh:29-31
@@ -2251,27 +2677,52 @@ def main(argv=None):
 
     # cuBLAS's deterministic mode (phase 5) needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    seconds, last = {}, time.perf_counter()
+
+    def lap(phase):
+        nonlocal last
+        now = time.perf_counter()
+        seconds[phase], last = now - last, now
+        log("main", f"phase {phase}: {seconds[phase]:.1f} s")
+
     card = phase_device()
+    lap("device")
     phase_build()
+    lap("build")
     records = phase_kernels(args.seed)
+    lap("kernels")
     slice_launches, trained = phase_slice(args.seed)
+    lap("slice")
     for kernel, count in slice_launches.items():
         records[kernel]["launches"] = count
     train_launches, train = phase_train(args.seed)
+    lap("train")
     sender_launches, senders = phase_exchange(args.seed)
+    lap("exchange")
     sender_train_launches, sender_train = phase_sender_train(args.seed)
+    lap("sender_train")
     for kernel, record in records.items():
         record["launches_per_train_step"] = train_launches.get(kernel)
         record["launches_per_sender_forward"] = sender_launches[kernel]
         record["launches_per_sender_train_step"] = sender_train_launches[kernel]
     bench = phase_bench(card)
+    lap("bench")
+    serving_launches, serving = phase_serving()
+    lap("serving")
+    dp_launches, dp = phase_dp(args.seed)
+    lap("dp")
+    for kernel, record in records.items():
+        record["launches_per_serving_forward"] = {m: c[kernel] for m, c in serving_launches.items()}
+        record["launches_per_dp_step_per_rank"] = dp_launches[kernel]
     wire = senders["exchange"]["wire"].values()
     disco_eval, disco_train, disco = phase_disco(
         args.seed, statistics.mean(v["boxflow_bytes"] for v in wire))
+    lap("disco")
     for kernel, record in records.items():
         record["launches_per_disco_eval_forward"] = disco_eval[kernel]
         record["launches_per_disco_train_step"] = disco_train[kernel]
     pipeline = phase_pipeline()
+    lap("pipeline")
     for kernel, record in records.items():
         record["launches_in_pipeline"] = {name: rec["launches"][kernel]
                                           for name, rec in pipeline.items() if "launches" in rec}
@@ -2279,7 +2730,8 @@ def main(argv=None):
     print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
                       "sender_train": sender_train, "trained_ego": trained,
-                      "bench_profile": bench["profile"], "disco": disco, "pipeline": pipeline}))
+                      "bench_profile": bench["profile"], "serving": serving, "dp": dp,
+                      "disco": disco, "pipeline": pipeline, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Benchmark of the port: the flagship lately-fusion ego's inference on one
 NVIDIA GPU, with the trained checkpoint.
 
-    python -m pcp_tpu_torch.bench
+    python -m pcp_tpu_torch.bench [--bf16] [--pre-reduce {1,fused}] [--fold-bn] [--wpack]
+        [--occupancy {realistic,clustered}] [--ckpt PATH|none]
 
 The counterpart of the repository's ``bench.py`` for the port. The ego
 (``v2x_pointpillar_basic_ego.yaml``) at full width loads
@@ -12,8 +13,19 @@ with ``strict=True``. Inputs are ``bench.py``'s "realistic" occupancy:
 4096 pillar centres a cloud. The batches are dispatched back to back and
 timed with CUDA events, best of REPS; the result is one JSON line in
 ``bench.py``'s form (``metric``, ``value``, ``unit``) with the card's name
-and power limit beside it. TF32 is off, as in every parity check of the
-port.
+and power limit beside it and the modes it ran under ``modes``. TF32 is
+off, as in every parity check of the port.
+
+The flags are ``bench.py``'s environment switches (``bench.py:50-132``):
+``--bf16`` (``BENCH_BF16``: ``MODEL.BF16``, the backbone and head serve in
+bfloat16), ``--pre-reduce`` (``BENCH_PRE_REDUCE``: ``1`` the tails kernel
+after the segmented max-scan, ``fused`` the fused kernel), ``--fold-bn``
+(``BENCH_FOLD_BN``: the backbone's BNs folded into its convs at load),
+``--wpack`` (``BENCH_WPACK``: the narrow level width-packed at load, after
+any fold), ``--occupancy`` (``BENCH_OCCUPANCY``, draw for draw) and
+``--ckpt`` (``BENCH_CKPT``; ``none`` takes weights made from a seeded
+generator, ``train/train_state.py::init_weights``). With no flag it runs as
+it did before they existed.
 
 Earlier lines hold one ``torch.profiler`` trace each of a b8 and a b4
 forward (CUDA activity, after warm-up): the device operations that take the
@@ -36,21 +48,69 @@ import torch
 
 from .config import ROOT_DIR
 from .entry import CFG_EGO, build
+from .models.backbones_2d.base_bev_backbone import fold_bn_state_dict, w_pack_state_dict
 from .ops import bev_scatter
+from .train.train_state import init_weights
 
 CKPT = ROOT_DIR / "results" / "bench_ckpt_torch.pt"
 BATCH, NPOINTS, ITERS, REPS = 8, 32768, 32, 3
 N_PILLARS = 4096
+N_CLUSTERS = 64  # the "clustered" occupancy's object clusters a cloud
+SEED = 0  # of the weights under --ckpt none
 # device activity in a Chrome trace of torch.profiler
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "bench_forward"  # the annotation around a traced forward
 
 
-def load_trained_ego(device="cuda"):
-    """(cfg, info, model): the ego on ``device`` in eval mode holding the
-    trained checkpoint."""
-    cfg, info, model = build(CFG_EGO, device=device)
-    sd = torch.load(CKPT, map_location=device, weights_only=True)
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--bf16", action="store_true",
+                    help="MODEL.BF16: the backbone and the head serve in bfloat16")
+    ap.add_argument("--pre-reduce", choices=("1", "fused"), default=None,
+                    help="MODEL.VFE.PRE_REDUCE: 1 = the tails kernel after the segmented "
+                         "max-scan, fused = the fused kernel (default: unset)")
+    ap.add_argument("--fold-bn", action="store_true",
+                    help="fold the backbone's BNs into its convs at load (FOLD_BN)")
+    ap.add_argument("--wpack", action="store_true",
+                    help="width-pack the backbone's narrow level at load, after any fold "
+                         "(W_PACK)")
+    ap.add_argument("--occupancy", choices=("realistic", "clustered"), default="realistic")
+    ap.add_argument("--ckpt", default=str(CKPT),
+                    help="the ego's state dict, or 'none' for weights from a seeded generator")
+    return ap.parse_args(argv)
+
+
+def modes(args):
+    """The modes ``args`` names, as the result line lists them."""
+    return {"bf16": args.bf16, "pre_reduce": args.pre_reduce, "fold_bn": args.fold_bn,
+            "wpack": args.wpack, "occupancy": args.occupancy, "ckpt": args.ckpt}
+
+
+def load_trained_ego(device="cuda", args=None):
+    """(cfg, info, model): the ego on ``device`` in eval mode, built in the
+    modes of ``args`` (``parse_args``; by default none), holding the
+    checkpoint ``args.ckpt`` (the trained one by default) or seeded weights,
+    folded and packed at load as the modes ask."""
+    args = args or parse_args([])
+    set_cfgs = []
+    if args.bf16:
+        set_cfgs += ["MODEL.BF16", "True"]
+    if args.fold_bn:
+        set_cfgs += ["MODEL.BACKBONE_2D.FOLD_BN", "True"]
+    if args.wpack:
+        set_cfgs += ["MODEL.BACKBONE_2D.W_PACK", "True"]
+    pre_reduce = {None: None, "1": True, "fused": "fused"}[args.pre_reduce]
+    cfg, info, model = build(CFG_EGO, device=device, pre_reduce=pre_reduce, set_cfgs=set_cfgs)
+    if args.ckpt == "none":
+        _, _, plain = build(CFG_EGO, device="cpu")
+        init_weights(plain, SEED)
+        sd = plain.state_dict()
+    else:
+        sd = torch.load(args.ckpt, map_location=device, weights_only=True)
+    if args.fold_bn:
+        sd = fold_bn_state_dict(sd, cfg.MODEL.BACKBONE_2D)
+    if args.wpack:
+        sd = w_pack_state_dict(sd, cfg.MODEL.BACKBONE_2D)
     model.load_state_dict(sd, strict=True)
     return cfg, info, model.eval()
 
@@ -67,6 +127,27 @@ def realistic_inputs(num_features, iters=ITERS, batch=BATCH, npoints=NPOINTS, se
     pts[..., 2] = rng.uniform(-3.0, -0.5, size=(iters, batch, npoints))
     pts[..., 3] = rng.uniform(0, 1, size=(iters, batch, npoints))
     return pts
+
+
+def clustered_inputs(num_features, iters=ITERS, batch=BATCH, npoints=NPOINTS, seed=0):
+    """``bench.py``'s "clustered" occupancy, draw for draw: every point
+    spread N(0, 3 m) around one of N_CLUSTERS random centres of its cloud."""
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((iters, batch, npoints, num_features), dtype=np.float32)
+    centers = rng.uniform(-45, 45, size=(iters, batch, N_CLUSTERS, 2))
+    idx = rng.integers(0, N_CLUSTERS, size=npoints)
+    pts[..., 0:2] = centers[:, :, idx, :] + rng.normal(0, 3.0, size=(iters, batch, npoints, 2))
+    pts[..., 2] = rng.uniform(-3.0, -0.5, size=(iters, batch, npoints))
+    pts[..., 3] = rng.uniform(0, 1, size=(iters, batch, npoints))
+    return pts
+
+
+def bench_batches(occupancy, num_features):
+    """The ITERS batches of the bench, on the card."""
+    draw = {"realistic": realistic_inputs, "clustered": clustered_inputs}[occupancy]
+    mask = torch.ones((BATCH, NPOINTS), dtype=torch.bool, device="cuda")
+    return [{"points": torch.from_numpy(p).cuda(), "points_mask": mask}
+            for p in draw(num_features)]
 
 
 def time_batches(model, batches, reps=REPS):
@@ -208,17 +289,17 @@ def short_name(name, width=90):
     return name if len(name) <= width else name[:width - 3] + "..."
 
 
-def run(log=print, card=None):
-    """The bench on the card: prints the profile lines through ``log`` and
-    returns the result line's dict, with the profile under ``"profile"`` and
-    the kernel launches of the timed passes under ``"launches"``."""
+def run(args=None, log=print, card=None):
+    """The bench on the card in the modes of ``args`` (``parse_args``; by
+    default none): prints the profile lines through ``log`` and returns the
+    result line's dict, with the profile under ``"profile"`` and the kernel
+    launches of the timed passes under ``"launches"``."""
+    args = args or parse_args([])
     card = card or card_name()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _, info, model = load_trained_ego("cuda")
-    pts = realistic_inputs(info.num_point_features)
-    mask = torch.ones((BATCH, NPOINTS), dtype=torch.bool, device="cuda")
-    batches = [{"points": torch.from_numpy(p).cuda(), "points_mask": mask} for p in pts]
+    _, info, model = load_trained_ego("cuda", args)
+    batches = bench_batches(args.occupancy, info.num_point_features)
     bev_scatter.reset_launches()
     ms = time_batches(model, batches)
     counts = dict(bev_scatter.launches)
@@ -244,19 +325,25 @@ def run(log=print, card=None):
                 f"{short_name(str(gap['before']), 60)}")
         log(f"b{b} backbone_2d alone (median of 20, CUDA events): " + ", ".join(
             f"{k} {v:.6f} ms" for k, v in summary["backbone_ms"].items()))
+    on = [k for k in ("bf16", "fold_bn", "wpack") if getattr(args, k)]
+    if args.pre_reduce:
+        on.append(f"pre_reduce {args.pre_reduce}")
+    weights = "random init" if args.ckpt == "none" else (
+        "trained ckpt" if Path(args.ckpt) == CKPT else f"ckpt {args.ckpt}")
     return {"metric": f"point-clouds/sec/gpu (voxelize->detect->NMS, b{BATCH} n{NPOINTS}, "
-                      f"512x512 grid, realistic, trained ckpt, TF32 off)",
+                      f"512x512 grid, {args.occupancy}, {weights}, TF32 off"
+                      + "".join(f", {m}" for m in on) + ")",
             "value": BATCH / ms * 1e3, "unit": "clouds/s", "ms_per_batch": ms,
-            "card": card, "valid_boxes_per_cloud": per_cloud, "launches": counts,
-            "profile": profile}
+            "card": card, "modes": modes(args), "valid_boxes_per_cloud": per_cloud,
+            "launches": counts, "profile": profile}
 
 
 def main(argv=None):
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(argv)
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("pcp_tpu_torch.bench: no CUDA device; the bench runs only on a GPU", file=sys.stderr)
         return 1
-    result = run(log=lambda msg: print(f"[bench] {msg}", flush=True))
+    result = run(args, log=lambda msg: print(f"[bench] {msg}", flush=True))
     print(json.dumps({k: v for k, v in result.items() if k not in ("profile", "launches")}))
     return 0
 

@@ -29,7 +29,9 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, worke
                      seed=None, logger=None, training=True, pin_memory=False):
     """(dataset, loader, None): the config's dataset and a loader over it,
     shuffled and dropping the last short batch in training. ``seed`` fixes
-    the order and every item's draws (``loader.py``)."""
+    the order and every item's draws; ``batch_size`` is the global batch, of
+    which the loader gives each rank of the process group its share
+    (``loader.py``)."""
     name = dataset_cfg["DATASET"]
     if name in NOT_PORTED:
         raise NotImplementedError(f"{name} is not ported yet (ROADMAP {NOT_PORTED[name]})")

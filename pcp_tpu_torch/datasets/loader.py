@@ -8,11 +8,22 @@ the order of a shuffled epoch comes from a ``torch.Generator`` seeded by
 seed + epoch. ``dataset.collate_batch`` pads the items; its numeric arrays
 then become tensors (sharing the numpy memory) so that the loader can pin
 them for ``non_blocking`` copies to the card.
+
+Under a process group of more than one rank (``parallel/``), ``batch_size``
+stays the global batch and each rank takes its share: global batch k of the
+epoch's order is split in world-size parts, and rank r takes part r
+(``parallel.shard_batch`` of the one-process batch k). Items are those of
+``item_rng(seed, epoch, index)`` whatever the rank. A pass without
+``drop_last`` repeats the order's first items to fill its last global batch,
+as pcdet's ``DistributedSampler`` pads; ``merge_results_dist`` drops them
+again.
 """
 import numpy as np
 import torch
 from torch.utils.data import DataLoader as _TorchLoader
 from torch.utils.data import Dataset, Sampler
+
+from ..parallel.collective import get_dist_info
 
 TENSOR_KEYS = ("points", "points_mask", "gt_boxes", "instances_tf")
 
@@ -42,25 +53,41 @@ class _Items(Dataset):
 
 class _EpochOrder(Sampler):
     """(epoch, index) keys of epoch ``epoch``, in order or shuffled by a
-    generator seeded from seed + epoch. It holds no reference to the loader
-    that sets its epoch: with none, the loader's workers shut down as soon
-    as its last reference goes, not whenever the garbage collector finds a
-    cycle (whose queues it may close first, each worker then holding the
+    generator seeded from seed + epoch; of a rank of several, its share of
+    each global batch of ``batch_size`` keys. It holds no reference to the
+    loader that sets its epoch: with none, the loader's workers shut down as
+    soon as its last reference goes, not whenever the garbage collector finds
+    a cycle (whose queues it may close first, each worker then holding the
     shutdown up for a 5 s timeout)."""
 
-    def __init__(self, dataset, shuffle, seed):
+    def __init__(self, dataset, shuffle, seed, batch_size=1, rank=0, world_size=1,
+                 drop_last=False):
         self.dataset, self.shuffle, self.seed, self.epoch = dataset, shuffle, seed, 0
+        self.batch_size, self.rank, self.world_size = batch_size, rank, world_size
+        self.drop_last = drop_last
+
+    def _global_batches(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __len__(self):
-        return len(self.dataset)
+        if self.world_size == 1:
+            return len(self.dataset)
+        return self._global_batches() * (self.batch_size // self.world_size)
 
     def __iter__(self):
         n = len(self.dataset)
-        order = range(n)
+        order = list(range(n))
         if self.shuffle:
             seed = (int(self.seed) + self.epoch if self.seed is not None
                     else np.random.SeedSequence().entropy % 2**63)
             order = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).tolist()
+        if self.world_size > 1 and n:
+            g, b = self.batch_size, self.batch_size // self.world_size
+            total = self._global_batches() * g
+            order = (order * -(-total // n))[:total]  # the last global batch filled
+            order = [i for k in range(0, total, g)
+                     for i in order[k + self.rank * b:k + (self.rank + 1) * b]]
         return iter([(self.epoch, int(i)) for i in order])
 
 
@@ -79,17 +106,24 @@ class _Collate:
 
 
 class DataLoader:
-    """``len(loader)`` batches of ``batch_size`` items a pass; ``set_epoch``
-    chooses the pass's order and item generators. ``pin_memory`` pins the
-    batches' tensors (for a CUDA consumer)."""
+    """``len(loader)`` batches of ``batch_size`` items a pass (of ``batch_size``
+    over the world size, rank ``rank``'s share, where ``world_size`` is more
+    than 1; both default to the process group's); ``set_epoch`` chooses the
+    pass's order and item generators. ``pin_memory`` pins the batches'
+    tensors (for a CUDA consumer)."""
 
     def __init__(self, dataset, batch_size, shuffle=False, seed=None, drop_last=False,
-                 num_workers=4, pin_memory=False):
+                 num_workers=4, pin_memory=False, rank=None, world_size=None):
+        if rank is None:
+            rank, world_size = get_dist_info()
+        if batch_size % world_size:
+            raise ValueError(f"a global batch of {batch_size} does not split over "
+                             f"{world_size} ranks")
         self.dataset = dataset
-        self._order = _EpochOrder(dataset, shuffle, seed)
+        self._order = _EpochOrder(dataset, shuffle, seed, batch_size, rank, world_size, drop_last)
         workers = max(int(num_workers), 0)
         self._loader = _TorchLoader(
-            _Items(dataset, seed), batch_size=batch_size, sampler=self._order,
+            _Items(dataset, seed), batch_size=batch_size // world_size, sampler=self._order,
             drop_last=drop_last, num_workers=workers, collate_fn=_Collate(dataset),
             pin_memory=pin_memory, persistent_workers=workers > 0,
             multiprocessing_context="spawn" if workers else None)

@@ -3,7 +3,7 @@ from .center_head import CenterHead
 __all__ = {"CenterHead": CenterHead}
 
 
-def build_dense_head(cfg, info, input_channels, num_class):
+def build_dense_head(cfg, info, input_channels, num_class, bf16=False):
     return __all__[cfg["NAME"]](
         model_cfg=cfg,
         input_channels=input_channels,
@@ -12,4 +12,5 @@ def build_dense_head(cfg, info, input_channels, num_class):
         grid_size=info.grid_size,
         point_cloud_range=info.point_cloud_range,
         voxel_size=info.voxel_size,
+        bf16=bf16,
     )

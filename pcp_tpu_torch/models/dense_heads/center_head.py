@@ -12,7 +12,9 @@ Modules and names follow pcdet (``shared_conv.{0,1}``,
 convention (``norm.BatchNorm2d``; flax momentum 0.9 is torch momentum 0.1);
 conv biases before a BN follow ``USE_BIAS_BEFORE_NORM``; the hm output bias
 starts at -2.19. Feature maps are (B, C, H, W); decode, targets and the
-heatmap loss take them in the JAX layout (B, H, W, C).
+heatmap loss take them in the JAX layout (B, H, W, C). With ``BF16`` (or
+``bf16=True``, from ``MODEL.BF16``) the convs and BNs serve in bfloat16 as
+flax's ``dtype=bfloat16`` does, and each branch's output comes back float32.
 """
 import torch
 import torch.nn.functional as F
@@ -22,36 +24,40 @@ from ...ops.nms import class_agnostic_nms
 from ..loss_fnc.centernet_losses import focal_loss_centernet, reg_loss_centernet
 from ..model_utils.centernet_utils import decode_bbox_from_heatmap
 from ..model_utils.norm import BatchNorm2d
+from ..model_utils.precision import Conv2d
 from .target_assigner import assign_targets_single_head
 
 
-def _conv_bn_relu(c_in, c_out, use_bias):
-    return nn.Sequential(nn.Conv2d(c_in, c_out, 3, padding=1, bias=use_bias),
-                         BatchNorm2d(c_out, eps=1e-5, momentum=0.1), nn.ReLU())
+def _conv_bn_relu(c_in, c_out, use_bias, dtype=None):
+    return nn.Sequential(Conv2d(c_in, c_out, 3, padding=1, bias=use_bias, compute_dtype=dtype),
+                         BatchNorm2d(c_out, eps=1e-5, momentum=0.1, compute_dtype=dtype),
+                         nn.ReLU())
 
 
 class SeparateHead(nn.Module):
-    def __init__(self, input_channels, sep_head_dict, init_bias=-2.19, use_bias=False):
+    def __init__(self, input_channels, sep_head_dict, init_bias=-2.19, use_bias=False,
+                 dtype=None):
         super().__init__()
-        self.sep_head_dict = sep_head_dict
+        self.sep_head_dict, self.dtype = sep_head_dict, dtype
         for name, spec in sep_head_dict.items():
-            layers = [_conv_bn_relu(input_channels, input_channels, use_bias)
+            layers = [_conv_bn_relu(input_channels, input_channels, use_bias, dtype)
                       for _ in range(int(spec["num_conv"]) - 1)]
-            out = nn.Conv2d(input_channels, int(spec["out_channels"]), 3, padding=1, bias=True)
+            out = Conv2d(input_channels, int(spec["out_channels"]), 3, padding=1, bias=True,
+                         compute_dtype=dtype)
             nn.init.constant_(out.bias, init_bias if name == "hm" else 0.0)
             layers.append(out)
             setattr(self, name, nn.Sequential(*layers))
 
     def forward(self, x):
-        return {name: getattr(self, name)(x) for name in self.sep_head_dict}
+        out = {name: getattr(self, name)(x) for name in self.sep_head_dict}
+        return out if self.dtype is None else {k: v.float() for k, v in out.items()}
 
 
 class CenterHead(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class, class_names, grid_size,
-                 point_cloud_range, voxel_size):
+                 point_cloud_range, voxel_size, bf16=False):
         super().__init__()
-        if model_cfg.get("BF16", False):
-            raise NotImplementedError("DENSE_HEAD BF16 is not ported yet (ROADMAP A13)")
+        self.dtype = torch.bfloat16 if (bf16 or model_cfg.get("BF16", False)) else None
         extra = set(model_cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"]) - {"center", "center_z", "dim", "rot"}
         if extra or model_cfg["POST_PROCESSING"].get("CALIB_CLS_SCORE", False):
             raise NotImplementedError(f"CenterHead branches {sorted(extra)} and CALIB_CLS_SCORE "
@@ -74,15 +80,17 @@ class CenterHead(nn.Module):
 
         shared_ch = int(model_cfg["SHARED_CONV_CHANNEL"])
         use_bias = bool(model_cfg.get("USE_BIAS_BEFORE_NORM", False))
-        self.shared_conv = _conv_bn_relu(input_channels, shared_ch, use_bias)
+        self.shared_conv = _conv_bn_relu(input_channels, shared_ch, use_bias, self.dtype)
         heads = []
         for mapping in self.class_id_mapping_each_head:
             head_dict = {k: dict(v) for k, v in model_cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"].items()}
             head_dict["hm"] = dict(out_channels=len(mapping), num_conv=int(model_cfg["NUM_HM_CONV"]))
-            heads.append(SeparateHead(shared_ch, head_dict, use_bias=use_bias))
+            heads.append(SeparateHead(shared_ch, head_dict, use_bias=use_bias, dtype=self.dtype))
         self.heads_list = nn.ModuleList(heads)
 
     def forward(self, batch):
+        if self.training and self.dtype is not None:
+            raise NotImplementedError("BF16 training is not ported yet (ROADMAP A13b)")
         x = self.shared_conv(batch["spatial_features_2d"])
         pred_dicts = [head(x) for head in self.heads_list]
         out = dict(batch)

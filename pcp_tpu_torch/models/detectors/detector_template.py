@@ -73,8 +73,8 @@ class Detector3DTemplate(nn.Module):
         extra = sorted(k for k, v in cfg.items() if v is not None and k not in known)
         if extra:
             raise NotImplementedError(f"MODEL keys {extra} are not ported yet (ROADMAP A11)")
-        if cfg.get("BF16", False):
-            raise NotImplementedError("MODEL BF16 is not ported yet (ROADMAP A13)")
+        # MODEL.BF16: the backbone's and the head's conv stacks serve in bfloat16
+        bf16 = bool(cfg.get("BF16", False))
 
         names = []
         num_bev_features = None
@@ -93,7 +93,7 @@ class Detector3DTemplate(nn.Module):
             names.append("map_to_bev")
             num_bev_features = int(cfg["MAP_TO_BEV"]["NUM_BEV_FEATURES"])
         if cfg.get("BACKBONE_2D") is not None:
-            backbone = build_backbone_2d(cfg["BACKBONE_2D"], num_bev_features)
+            backbone = build_backbone_2d(cfg["BACKBONE_2D"], num_bev_features, bf16=bf16)
             self.add_module("backbone_2d", backbone)
             names.append("backbone_2d")
             num_bev_features = backbone.num_bev_features
@@ -106,6 +106,7 @@ class Detector3DTemplate(nn.Module):
             names.append("v2x_mid_fusion")
         if cfg.get("DENSE_HEAD") is not None:
             self.add_module("dense_head", build_dense_head(cfg["DENSE_HEAD"], info,
-                                                           num_bev_features, self.num_class))
+                                                           num_bev_features, self.num_class,
+                                                           bf16=bf16))
             names.append("dense_head")
         return names

@@ -25,6 +25,8 @@ import torch
 
 from ..datasets import build_dataloader
 from ..exchange.database import ExchangeDatabase
+from ..models.backbones_2d.base_bev_backbone import w_pack_state_dict
+from ..parallel import barrier, get_dist_info
 from ..train.bn_recal import recalibrate_batch_stats
 from ..train.checkpoint import latest_checkpoint, load_params_from_file
 from ..train.eval_utils import eval_one_epoch, make_exchange_writer
@@ -91,7 +93,8 @@ def eval_single_ckpt(model, test_set, test_loader, args, cfg, eval_dir, logger, 
         exchange_writer=exchange_writer_from_cfg(cfg, logger), infer_time=args.infer_time)
     logger.info("\n" + result_str)
     logger.info(f"result_dict: {result_dict}")
-    write_metrics(result_dict, eval_dir)
+    if get_dist_info()[0] == 0:
+        write_metrics(result_dict, eval_dir)
     return result_dict
 
 
@@ -102,8 +105,15 @@ def _load_weights(model, args, cfg, logger, ckpt=None):
     ckpt = ckpt or args.ckpt or (latest_checkpoint(args.ckpt_dir) if args.ckpt_dir else None)
     if ckpt is None:
         raise FileNotFoundError("no checkpoint to evaluate: give --ckpt or --ckpt_dir")
-    model.load_state_dict(load_params_from_file(ckpt), strict=True)
+    sd = load_params_from_file(ckpt)
     logger.info(f"loaded checkpoint {ckpt}")
+    bb_cfg = cfg.MODEL.get("BACKBONE_2D") or {}
+    if bb_cfg.get("W_PACK", False):
+        # standard-trained weights -> width-packed structured kernels, as the
+        # JAX CLI transforms them at load (tools/test.py:94-100)
+        sd = w_pack_state_dict(sd, bb_cfg)
+        logger.info("W_PACK: width-packed narrow backbone levels")
+    model.load_state_dict(sd, strict=True)
     if args.bn_recal:
         _, train_loader, _ = build_dataloader(
             dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
@@ -154,8 +164,10 @@ def repeat_eval_ckpt(model, test_set, test_loader, args, cfg, eval_output_dir, l
         result_dir = eval_output_dir / f"epoch_{epoch_id}"
         result_dir.mkdir(parents=True, exist_ok=True)
         eval_single_ckpt(model, test_set, test_loader, args, cfg, result_dir, logger, ckpt=ckpt)
-        with open(ckpt_record_file, "a") as f:
-            print(epoch_id, file=f)
+        if get_dist_info()[0] == 0:
+            with open(ckpt_record_file, "a") as f:
+                print(epoch_id, file=f)
+        barrier()  # every rank reads the record before it looks for the next
         logger.info(f"epoch {epoch_id} has been evaluated")
 
 

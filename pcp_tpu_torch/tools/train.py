@@ -3,6 +3,7 @@
     python -m pcp_tpu_torch.tools.train --cfg_file tools/cfgs/v2x_sim_models/<cfg>.yaml \
         [--batch_size 4] [--epochs 20] [--extra_tag tag] [--seed 0] [--device cuda] \
         [--set DATA_CONFIG.USE_SYNTHETIC_DATA True ...]
+    torchrun --nproc_per_node N -m pcp_tpu_torch.tools.train --launcher pytorch ...
 
 Writes ``{output_root}/{EXP_GROUP}/{TAG}/{extra_tag}/``: ``ckpt/`` (rotating
 ``checkpoint_epoch_{n}.pth``), the log, each step's loss, loss terms and
@@ -14,11 +15,20 @@ from ``--ckpt`` or the newest checkpoint there, then trains the remaining
 epochs (``train/train_utils.py::train_model``) and, with
 ``--num_epochs_to_eval`` > 0, evaluates the last checkpoints
 (``tools/test.py::repeat_eval_ckpt``). The model runs on ``--device``
-(default ``cuda``: raises where there is no GPU).
+(default ``cuda``: raises where there is no GPU). With ``--launcher
+pytorch`` the process is one rank of a data-parallel run (pcdet's flag;
+``torchrun`` starts the ranks and sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` and the rendezvous): NCCL between cards (rank r on
+``cuda:LOCAL_RANK``), gloo with ``--device cpu``. ``--batch_size`` stays the
+global batch; each rank takes its share (``datasets/loader.py``), the step
+is the one-process step over the global batch (``train/train_state.py``;
+the ego only, ROADMAP A10b), and rank 0 alone logs, saves and writes the
+evaluation's files.
 """
 import argparse
 import datetime
 import json
+import os
 import statistics
 from pathlib import Path
 
@@ -29,6 +39,7 @@ from ..datasets import build_dataloader
 from ..models import DatasetInfo, build_network
 from ..models.detectors.detector_template import MAKER_KEYS
 from ..ops import bev_scatter
+from ..parallel import barrier, process_group, replicate_state
 from ..train.checkpoint import latest_checkpoint, load_checkpoint, overlay_bev_maker_weights
 from ..train.optimization import build_optimizer
 from ..train.train_state import create_train_state
@@ -134,6 +145,8 @@ def parse_args(argv=None):
     parser.add_argument("--profile", action="store_true",
                         help="trace steps 1-10 of the second epoch (or the only one) with "
                              "torch.profiler")
+    parser.add_argument("--launcher", choices=("none", "pytorch"), default="none",
+                        help="pytorch: one rank of a data-parallel run started by torchrun")
     return parser.parse_args(argv)
 
 
@@ -141,15 +154,29 @@ def main(argv=None):
     """Train; returns a summary: steps, epochs run, the losses, the median
     data and step milliseconds a batch, and the kernels' launches."""
     args = parse_args(argv)
+    if args.launcher == "none":
+        return train(args, torch.device(args.device))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    with process_group(rank, world, "env://", "nccl" if device.type == "cuda" else "gloo",
+                       device):
+        return train(args, device, rank)
+
+
+def train(args, device, rank=0):
+    """``main`` on ``device``, as ``rank`` of the process group if there is
+    one."""
     cfg, output_dir = load_cfg(args)
     batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     epochs = args.epochs or cfg.OPTIMIZATION.NUM_EPOCHS
     ckpt_dir = output_dir / "ckpt"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
-    logger = create_logger(output_dir / f"log_train_{stamp}.txt")
+    logger = create_logger(output_dir / f"log_train_{stamp}.txt" if rank == 0 else None,
+                           rank=rank)
     logger.info("**********************Start logging**********************")
-    device = torch.device(args.device)
     apply_tf32(args.tf32)
     if device.type == "cuda":
         logger.info(f"device: {torch.cuda.get_device_name(device)}, torch {torch.__version__}, "
@@ -176,6 +203,7 @@ def main(argv=None):
     if resume_from is not None:
         state, start_epoch, _ = load_checkpoint(resume_from, state)
         logger.info(f"resumed from {resume_from} (epoch {start_epoch})")
+    replicate_state(state)
 
     history = []
     bev_scatter.reset_launches()
@@ -187,7 +215,8 @@ def main(argv=None):
                 ckpt_save_time_interval=args.ckpt_save_time_interval,
                 precise_bn_batches=args.precise_bn, precise_bn_every=args.precise_bn_every,
                 history=history)
-    (output_dir / f"train_history_{stamp}.json").write_text(json.dumps(history))
+    if rank == 0:
+        (output_dir / f"train_history_{stamp}.json").write_text(json.dumps(history))
     launches = dict(bev_scatter.launches)
     summary = {"steps": len(history), "epochs": epochs - start_epoch,
                "losses": [h["loss"] for h in history], "launches": launches,
@@ -201,6 +230,7 @@ def main(argv=None):
     if args.num_epochs_to_eval > 0:
         from .test import repeat_eval_ckpt
 
+        barrier()  # every rank sees rank 0's last checkpoint
         logger.info("**********************Start evaluation**********************")
         test_set, test_loader, _ = build_dataloader(
             dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES, batch_size=batch_size,

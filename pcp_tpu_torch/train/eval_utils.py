@@ -5,7 +5,11 @@ model over a loader in eval mode, turns the fixed-shape outputs into
 per-sample annotations (``generate_prediction_dicts``), counts the recall of
 the gt at 3D-IoU thresholds and runs the dataset's evaluation (the
 nuScenes-protocol mAP); ``make_exchange_writer`` broadcasts a sender's
-outputs into the exchange database.
+outputs into the exchange database. Under a process group of several ranks
+each rank runs its share of every batch; the predictions are merged in the
+global order (``parallel.merge_results_dist``, the loader's padding left
+out) and the recall counts summed before every rank evaluates the whole
+set, rank 0 alone writing the evaluation's files.
 """
 import time
 
@@ -14,6 +18,7 @@ import torch
 
 from ..exchange.database import pool_box_flow
 from ..ops.rotated_iou import boxes_iou3d
+from ..parallel.collective import all_gather_objects, get_dist_info, merge_results_dist
 from .train_utils import AverageMeter, _to_device_batch
 
 
@@ -64,7 +69,8 @@ def eval_one_epoch(model, dataset, dataloader, class_names, logger=None,
     if not host_model:
         model.eval()
         device = next(model.parameters()).device
-    det_annos = []
+    rank, world = get_dist_info()
+    det_annos, chunk = [], 1
     recall_acc = np.zeros(1 + len(recall_thresh_list))
     infer_meter = AverageMeter() if infer_time else None
     warmup = 2
@@ -79,15 +85,22 @@ def eval_one_epoch(model, dataset, dataloader, class_names, logger=None,
                 out = _forward(model, dev_batch, infer_meter if timed else None)
             fbd = {k: _np(v) for k, v in out["final_box_dicts"].items()}
             det_annos.extend(dataset.generate_prediction_dicts(batch, fbd, class_names))
+            chunk = len(batch["points"])
             if "gt_boxes" in dev_batch:
                 fb = out["final_box_dicts"]
-                recall_acc += _recall_counts(torch.as_tensor(fb["pred_boxes"]),
-                                             torch.as_tensor(fb["pred_valid"]),
-                                             torch.as_tensor(dev_batch["gt_boxes"]),
+                # the loader's padding (global position past the dataset) is not counted
+                first = (i_batch * world + rank) * chunk
+                real = max(0, min(chunk, len(dataset) - first))
+                recall_acc += _recall_counts(torch.as_tensor(fb["pred_boxes"])[:real],
+                                             torch.as_tensor(fb["pred_valid"])[:real],
+                                             torch.as_tensor(dev_batch["gt_boxes"])[:real],
                                              list(recall_thresh_list))
             if exchange_writer is not None:
                 exchange_writer(batch, out)
 
+    if world > 1:
+        det_annos = merge_results_dist(det_annos, len(dataset), chunk)
+        recall_acc = np.sum(all_gather_objects(recall_acc), axis=0)
     n_samples = len(det_annos)
     sec_per_example = (time.time() - t0) / max(n_samples, 1)
     if logger is not None:
@@ -101,7 +114,7 @@ def eval_one_epoch(model, dataset, dataloader, class_names, logger=None,
     for i, th in enumerate(recall_thresh_list):
         result_dict[f"recall/rcnn_{th}"] = recall_acc[1 + i] / num_gt
     result_str, metrics = dataset.evaluation(det_annos, class_names, eval_metric="nuscenes",
-                                             output_path=output_path)
+                                             output_path=output_path if rank == 0 else None)
     result_dict.update(metrics)
     result_dict["sec_per_example"] = sec_per_example
     if infer_meter is not None and infer_meter.count:

@@ -6,7 +6,13 @@ statistics, the optimizer its state and the step count (``count`` of its
 param group), and :class:`TrainState` bundles the two. A train step is:
 zero the gradients, forward in training mode (loss and running-statistics
 update), backward, then the optimizer step, which clips by global norm,
-updates and counts the step.
+updates and counts the step. Under a process group of more than one rank
+(``parallel/``) the step is the one-process step over the global batch:
+batch statistics and loss normalisers are global (``norm.py``,
+``centernet_losses.py``), each rank's loss is its share of the global loss,
+the gradients are summed over the ranks before the optimizer, and the loss
+and terms the step returns are the global ones. Only the ego trains so;
+the senders and DiscoNet raise (ROADMAP A10b).
 
     cfg, info, model = build(CFG_EGO, device="cuda")
     optimizer, lr_fn = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch, epochs)
@@ -20,6 +26,7 @@ import torch
 from torch import nn
 
 from ..models.model_utils.norm import MaskedBatchNorm
+from ..parallel.collective import all_reduce_gradients, all_reduce_sum, get_dist_info
 
 # flax's lecun_normal: a normal truncated at +-2 std, scaled back to unit
 # variance by this factor (jax.nn.initializers.variance_scaling)
@@ -78,24 +85,32 @@ def create_train_state(model, optimizer, seed):
 
 
 def take_train_step(model, optimizer, batch):
-    """One train step of ``model`` on ``batch``: zero the gradients, forward
-    in training mode, backward, optimizer step. Returns the forward's
-    outputs."""
+    """One train step of ``model`` on ``batch`` (this rank's share of the
+    global batch under a process group): zero the gradients, forward in
+    training mode, backward, sum the gradients over the ranks, optimizer
+    step. Returns the forward's outputs (this rank's loss share)."""
+    if get_dist_info()[1] > 1 and any(hasattr(model, k) for k in ("corrector", "v2x_mid_fusion")):
+        raise NotImplementedError("data-parallel training of the senders and DiscoNet is not "
+                                  "ported yet (ROADMAP A10b)")
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(batch)
     out["loss"].backward()
+    all_reduce_gradients(model.parameters())
     optimizer.step()
     return out
 
 
 def make_train_step(model, optimizer):
     """``train_step(batch) -> (loss, tb_dict)``, tensors on the model's
-    device; the host does not wait for the card."""
+    device, the global batch's; the host does not wait for the card."""
 
     def train_step(batch):
         out = take_train_step(model, optimizer, batch)
-        return out["loss"].detach(), {k: v.detach() for k, v in out["tb_dict"].items()}
+        keys = list(out["tb_dict"])
+        shares = torch.stack([out["loss"].detach()] + [out["tb_dict"][k].detach() for k in keys])
+        total = all_reduce_sum(shares)
+        return total[0], dict(zip(keys, total[1:]))
 
     return train_step
 

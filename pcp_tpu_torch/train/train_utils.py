@@ -6,7 +6,10 @@ time-interval ``latest_model`` snapshot; ``train_model`` runs the epochs,
 optionally bakes dataset-average BN statistics into the last checkpoint, and
 saves rotating checkpoints. A loader is any iterable of numpy batch dicts;
 ``set_epoch(epoch)`` is called where the loader has it. The trainer runs on
-the model's device.
+the model's device. Under a process group of several ranks every rank steps
+(and recalibrates) on its share of each batch, and rank 0 alone profiles,
+snapshots and saves checkpoints; the CLI gives the other ranks a logger
+that only reports errors.
 """
 import json
 import time
@@ -14,6 +17,7 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.collective import get_dist_info
 from .bn_recal import recalibrate_batch_stats
 from .checkpoint import save_checkpoint, save_latest_snapshot
 from .train_state import make_train_step
@@ -80,6 +84,8 @@ def train_one_epoch(state, train_loader, epoch, logger=None, tb_writer=None, log
     model = state.model
     device = _model_device(model)
     step_fn = step_fn or make_train_step(model, state.optimizer)
+    if get_dist_info()[0] != 0:
+        profile_dir = ckpt_save_dir = None
     data_time, step_time, losses = AverageMeter(), AverageMeter(), AverageMeter()
     tb_meters = {}
     prof = None
@@ -182,8 +188,9 @@ def train_model(state, train_loader, total_epochs, ckpt_dir, logger=None, max_ck
             recalibrate_batch_stats(state.model, train_loader,
                                     lambda b: _to_device_batch(b, device),
                                     max_batches=precise_bn_batches, logger=logger)
-        save_checkpoint(state, ckpt_dir, epoch + 1, state.step,
-                        max_ckpt_save_num=max_ckpt_save_num, logger=logger)
+        if get_dist_info()[0] == 0:
+            save_checkpoint(state, ckpt_dir, epoch + 1, state.step,
+                            max_ckpt_save_num=max_ckpt_save_num, logger=logger)
         if logger is not None:
             terms = " ".join(f"{k} {v:.4f}" for k, v in tb_means.items())
             logger.info(f"epoch {epoch} done, avg loss {avg_loss:.4f} | {terms}")

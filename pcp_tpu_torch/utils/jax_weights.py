@@ -119,18 +119,25 @@ def _vfe(sd, vfe_p, vfe_s, vcfg, prefix=""):
 
 
 def _backbone(sd, bb_p, bb_s, bcfg, prefix=""):
+    """The backbone's blocks; a block without ``norm`` (``fold_bn_variables``'s
+    output) is a biased conv, whose BN slot holds no tensor. Packed kernels
+    (``w_pack_variables``) map as any other."""
+    def put_bn(key, blk):
+        if "norm" in bb_p[blk]:
+            _put_bn(sd, key, bb_p[blk]["norm"], _sub(_sub(bb_s, blk), "norm"))
+
     for l, n_layers in enumerate(list(bcfg["LAYER_NUMS"])):
         for k in range(n_layers + 1):
             blk, base = f"block{l}_{k}", f"{prefix}backbone_2d.blocks.{l}"
             _put_conv(sd, f"{base}.{3 * k + 1}", bb_p[blk]["conv"])
-            _put_bn(sd, f"{base}.{3 * k + 2}", bb_p[blk]["norm"], _sub(_sub(bb_s, blk), "norm"))
+            put_bn(f"{base}.{3 * k + 2}", blk)
         blk, base = f"deblock{l}", f"{prefix}backbone_2d.deblocks.{l}"
         if blk in bb_p:
             if "deconv" in bb_p[blk]:
                 _put_conv(sd, f"{base}.0", bb_p[blk]["deconv"], _deconv)
             else:
                 _put_conv(sd, f"{base}.0", bb_p[blk]["conv"])
-            _put_bn(sd, f"{base}.1", bb_p[blk]["norm"], _sub(_sub(bb_s, blk), "norm"))
+            put_bn(f"{base}.1", blk)
 
 
 def _head(sd, hd_p, hd_s, hcfg):

@@ -24,6 +24,20 @@ def test_inputs_are_bench_py_draws():
     np.testing.assert_array_equal(bench.realistic_inputs(c, iters, batch, npoints), pts)
 
 
+def test_clustered_inputs_are_bench_py_draws():
+    """``bench.py:90-97``'s "clustered" branch, repeated here line for line at
+    a small size, against ``clustered_inputs``: equal, exactly."""
+    iters, batch, npoints, c = 3, 2, 1000, 13
+    rng = np.random.default_rng(0)
+    pts = np.zeros((iters, batch, npoints, c), dtype=np.float32)
+    centers = rng.uniform(-45, 45, size=(iters, batch, 64, 2))
+    idx = rng.integers(0, 64, size=npoints)
+    pts[..., 0:2] = centers[:, :, idx, :] + rng.normal(0, 3.0, size=(iters, batch, npoints, 2))
+    pts[..., 2] = rng.uniform(-3.0, -0.5, size=(iters, batch, npoints))
+    pts[..., 3] = rng.uniform(0, 1, size=(iters, batch, npoints))
+    np.testing.assert_array_equal(bench.clustered_inputs(c, iters, batch, npoints), pts)
+
+
 def _x(name, cat, ts, dur):
     return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
 
