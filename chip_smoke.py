@@ -102,7 +102,9 @@ exits non-zero:
    and with each broadcast dropped with p 0.5 (lately_drop05_async: more
    agents must send the ego no MoDAR row than in lately_async, by the
    items' ``metadata["exchange"]``), then the single-agent ego trained and
-   evaluated. Each stage's
+   evaluated. The car's training and the lately_async evaluation load
+   through 4 spawned workers, the other stages in the main process. Each
+   stage's
    seconds and kernel launches (every launch count at 0 before it; a
    network stage must launch ``bev_scatter_max`` and no other kernel, a
    late-fusion stage none); for training the steps, the median data and
@@ -149,13 +151,25 @@ exits non-zero:
 12. dp (after phase 11): ``entry.dryrun_multichip`` over NCCL on every
    card (the JAX package's gate: full grid, one sample a rank, the staged
    boxflow database, three steps with the loss falling, a merged eval), then
-   two ranks sharing the card over gloo on CUDA tensors against one
-   process on the same b2 x 32768 batch at full width, TF32 off in every
-   process: in float32 through B1 (one launch a rank a step) the loss,
-   terms, statistics, gradient and parameters after the Adam step, against
-   the standard one-process step and, tighter, against the one-process
-   step rounding as the ranks do; in float64 (the scatter's plain version)
-   everything within 1e-9; the ranks bitwise equal; the step's time.
+   two spawned ranks sharing the card over gloo on CUDA tensors against one
+   process, TF32 off in every process, each model at full width on its
+   global batch: the ego (b2 x 32768), the car (b2 x 65536, phase 7's
+   batch) and DiscoNet (b2 merged clouds, phase 10's, agent 3 out of the
+   second). In float32 through B1 (a rank's step launches it once, seven
+   times for DiscoNet) the loss, terms, statistics, gradient and parameters
+   after the Adam step against the standard one-process step (the car's
+   ranks take the one process's corrector decisions where theirs differ),
+   and for the ego, tighter, against the one-process step rounding as the
+   ranks do; in float64 (the scatter's plain version) everything within
+   1e-9; the ranks bitwise equal; the ego's step time. The ego in BF16 too:
+   two ranks against one process, both in BF16.
+13. bf16_train (after phase 12): the full-width ego's BF16 train step
+   (``MODEL.BF16``) at b4 x 32768 against its float32 step from the same
+   weights and batch: loss, terms, each gradient leaf over its largest |g|
+   and in norm, running statistics, each within a limit read on the card
+   first; one B1 launch a step; parameters, optimizer moments and
+   statistics float32; each step's time, its forward+loss / backward /
+   optimizer split on the card and on the host, and peak memory.
 
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
@@ -165,8 +179,11 @@ profile under ``"bench_profile"``, phase 11's under ``"serving"``, phase
 ``"pipeline"``; each kernel's launches in each pipeline stage under
 ``"launches_in_pipeline"``, in a DiscoNet eval forward and train step under
 ``"launches_per_disco_eval_forward"`` and ``"..._train_step"``, in a
-serving mode's forward under ``"launches_per_serving_forward"`` and in a
-rank's DP step under ``"launches_per_dp_step_per_rank"``),
+serving mode's forward under ``"launches_per_serving_forward"``, in a
+rank's DP step of each model under ``"launches_per_dp_step_per_rank"`` and
+in a BF16 ego step under ``"launches_per_bf16_train_step"``; phase 12's
+record, each model's comparisons among them, under ``"dp"`` and phase
+13's under ``"bf16_train"``),
 the card as nvidia-smi names it, and
 ``{"ok": true, "device": ...}``; the bench's line comes just before them.
 Without a CUDA device the script exits 1 and prints no result.
@@ -879,30 +896,37 @@ def hold_to_cpu_spread(phase, name, gpu, cpu, cpu_half, zero_names, cpu_s):
 def time_train_steps(model, optimizer, batch, iters=10, warmup=3):
     """The train step: host clock around steps that end in a synchronize
     (median of ``iters`` after ``warmup``), the split into forward+loss,
-    backward and optimizer by CUDA events (medians), and the peak memory
+    backward and optimizer by CUDA events (medians), the host's time to
+    issue each part (``host_*``: a device part longer than its issue is
+    the card's, one no longer waits on the host), and the peak memory
     allocated. Returns (step ms, split, peak bytes)."""
     model.train()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms, split = [], {"forward_loss": [], "backward": [], "optimizer": []}
+    parts = ("forward_loss", "backward", "optimizer")
+    step_ms, split = [], {k: [] for k in parts + tuple(f"host_{k}" for k in parts)}
     for it in range(warmup + iters):
         events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t = [time.perf_counter()]
         events[0].record()
         optimizer.zero_grad(set_to_none=True)
         out = model(batch)
         events[1].record()
+        t.append(time.perf_counter())
         out["loss"].backward()
         events[2].record()
+        t.append(time.perf_counter())
         optimizer.step()
         events[3].record()
+        t.append(time.perf_counter())
         torch.cuda.synchronize()
         del out
         if it >= warmup:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            for i, key in enumerate(split):
+            step_ms.append((time.perf_counter() - t[0]) * 1e3)
+            for i, key in enumerate(parts):
                 split[key].append(events[i].elapsed_time(events[i + 1]))
+                split[f"host_{key}"].append((t[i + 1] - t[i]) * 1e3)
     return (statistics.median(step_ms), {k: statistics.median(v) for k, v in split.items()},
             torch.cuda.max_memory_allocated())
 
@@ -1036,7 +1060,7 @@ def phase_train(seed):
               "steps": TRAIN_STEPS}
     log("train", f"b{b} x {n} train step, full width, TF32 off: median {record['step_ms']:.6f} ms "
                  f"over 10 steps after 3 warm-ups (host clock, synchronized), "
-                 f"{record['samples_per_s']:.3f} samples/s; split (median ms, CUDA events): "
+                 f"{record['samples_per_s']:.3f} samples/s; split (median ms, CUDA events; host_*: the host's clock to issue it): "
                  + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
                  + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB)")
 
@@ -1053,6 +1077,7 @@ def phase_train(seed):
 
 CFG_CAR = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_basic_car.yaml"
 CFG_RSU = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_basic_rsu.yaml"
+CFG_DISCO = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_disco.yaml"
 SENDER_N = 65536  # MAX_POINTS_PER_SAMPLE's default; neither sender config sets it
 SENDER_PAD = 1024  # padding rows at the end of each sender cloud
 NUM_SWEEPS, NUM_INSTANCES = 11, 8
@@ -1686,7 +1711,8 @@ def run_sender_training(name, cfg_path, seed):
     log("sender_train", f"{name}: b{b} x {n} train step, full width, TF32 off: median "
                         f"{record['step_ms']:.6f} ms over 10 steps after 3 warm-ups (host clock, "
                         f"synchronized), {record['samples_per_s']:.3f} samples/s; split (median ms, "
-                        "CUDA events): " + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+                        "CUDA events; host_*: the host's clock to issue it): "
+                        + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
                         + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB)")
 
     # card against CPU at b1, from seeded weights (random BN affine and
@@ -2008,53 +2034,135 @@ def _like_ranks(model):
     return lambda: setattr(norm, "rank_sum", rank_sum)
 
 
-def _dp_step(seed, batch, device, dtype=torch.float32, like_ranks=False, timed=0):
-    """One train step of the full-width ego from ``seed`` on ``batch``
-    (this rank's share under a process group), deterministic, then
-    ``timed`` more, timed on the host's clock (the first pays for cuDNN's
-    choices). ``like_ranks``: rounding as DP_WORLD ranks do
-    (``_like_ranks``). Returns the record, the state and the gradients
-    after the first step on the CPU, and its learning rate."""
+def exact_zero_leaves(model):
+    """Names of the leaves whose gradient is 0 in exact arithmetic, which the
+    checks hold apart since rounding alone decides their sign: the conv
+    biases that a BN follows (``biases_before_bn``; DiscoNet's pixel weightor
+    has two outside an ``nn.Sequential``) and a sender's last BN bias of the
+    object head's shape encoder (every local pools a positive value in every
+    channel, so that bias moves them all alike, and the next masked BN takes
+    it out)."""
+    from pcp_tpu_torch.train.train_state import biases_before_bn
+
+    names = biases_before_bn(model)
+    if hasattr(model, "v2x_mid_fusion"):
+        names |= {f"v2x_mid_fusion.pixel_weightor.conv1_{i}.bias" for i in (1, 2)}
+    if hasattr(model, "corrector"):
+        enc = model.corrector.object_head.points_shape_encoder
+        names.add(f"corrector.object_head.points_shape_encoder.{len(enc) - 2}.bias")
+    return names
+
+
+# the models of phase 12 and the ``--set`` pairs each is built with
+DP_MODELS = {"ego": (CFG_EGO, []), "car": (CFG_CAR, []), "disco": (CFG_DISCO, []),
+             "ego_bf16": (CFG_EGO, ["MODEL.BF16", "True"])}
+# The car and DiscoNet: two ranks against the standard one-process step in
+# float32, the car's ranks taking the one process's corrector decisions on
+# their rows where theirs differ (``pin_decisions``), and in float64 at
+# DP_F64_TOL without pinning. Limits: the first reading on an H100 80GB
+# HBM3 at 700 W with margin (car: loss 6.7e-7, terms 1.1e-6, statistics
+# 1.2e-7, gradient L2 2.0e-3, worst entry 3.7e-2; DiscoNet: 0, 3.2e-7,
+# 1.8e-7, 2.5e-3, 3.8e-2). The ego in BF16: two ranks against one process,
+# both in BF16; a rank convolves b1 where one process convolves b2, so
+# cuDNN's bfloat16 roundings differ and the layers grow them. Over seeds
+# 0-3 on that card (tools_torch/bf16_rank_spread.py) the loss read
+# 1.5e-6 to 1.6e-3, terms up to 2.3e-3, statistics up to 6.0e-5, gradient
+# L2 0.25-0.44, worst entry 0.56-1.03 of its leaf's largest |g| (so that
+# limit cannot tell a lost leaf) and a leaf's norm 0.07-0.20 off (a lost
+# leaf reads 1), with flax's fast variance in the BN as widely. So it is
+# also held, tighter, against the one-process BF16 step rounding as the
+# ranks do (``_like_ranks``): loss up to 9.6e-8, statistics 0, gradient L2
+# 5.9e-3 to 8.6e-3, worst entry 1.3e-2 to 2.1e-2, a leaf's norm 2.4e-3 to
+# 5.0e-3 off over the same seeds and both variances.
+DP_F32_TOL_BY_MODEL = {
+    "ego": DP_F32_TOL,
+    "car": {"loss": 1e-5, "tb": 1e-5, "stats": 1e-6, "grad_l2": 1e-2, "grad_entry": 0.2},
+    "disco": {"loss": 1e-6, "tb": 1e-5, "stats": 1e-6, "grad_l2": 1e-2, "grad_entry": 0.2},
+    "ego_bf16": {"loss": 5e-3, "tb": 5e-3, "stats": 5e-4, "grad_l2": 0.6, "grad_entry": 2.0,
+                 "grad_norm": 0.5},
+}
+DP_BF16_LIKE_RANKS_TOL = {"loss": 1e-6, "tb": 1e-6, "stats": 1e-6, "grad_l2": 3e-2,
+                          "grad_entry": 0.1, "grad_norm": 5e-2}
+LIKE_RANKS_TOL = {"ego": DP_LIKE_RANKS_TOL, "ego_bf16": DP_BF16_LIKE_RANKS_TOL}
+
+
+def _dp_step(name, seed, batch, device, dtype=torch.float32, like_ranks=False, timed=0, pin=None):
+    """One train step of the full-width model ``name`` (DP_MODELS) from
+    ``seed`` on ``batch`` (this rank's share under a process group),
+    deterministic, then ``timed`` more, timed on the host's clock (the first
+    pays for cuDNN's choices). ``like_ranks``: rounding as DP_WORLD ranks do
+    (``_like_ranks``, the ego in float32 and in BF16). ``pin``: a sender's
+    corrector decisions and flow to take where its own differ
+    (``pin_decisions``). Returns the
+    record (global loss and terms, launches, step times, learning rate, the
+    exactly-zero leaves and, for a sender's unpinned float32 step, its
+    decisions), and the state and gradients after the first step on the
+    CPU."""
     from pcp_tpu_torch.entry import build
     from pcp_tpu_torch.ops import bev_scatter as bs
-    from pcp_tpu_torch.parallel import replicate_state
+    from pcp_tpu_torch.parallel import all_reduce_sum, replicate_state
     from pcp_tpu_torch.train.optimization import build_optimizer
-    from pcp_tpu_torch.train.train_state import create_train_state, make_train_step
+    from pcp_tpu_torch.train.train_state import (create_train_state, make_train_step,
+                                                 take_train_step)
 
-    cfg, _, model = build(CFG_EGO, device=device)
+    cfg_path, sets = DP_MODELS[name]
+    cfg, _, model = build(cfg_path, device=device, set_cfgs=sets)
     model.to(dtype)
     if dtype == torch.float64:  # B1 takes float32 only: its plain version, on the card
-        model.vfe.scatter_max = lambda f, p, h, w: bs.ScatterMax.apply(
-            f, p, h, w, bs.bev_scatter_max_sorted_plain, 0.0)
+        for m in model.modules():
+            if hasattr(m, "scatter_max"):
+                m.scatter_max = lambda f, p, h, w: bs.ScatterMax.apply(
+                    f, p, h, w, bs.bev_scatter_max_sorted_plain, 0.0)
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
                                    total_epochs=1)
     replicate_state(create_train_state(model, optimizer, seed))
-    step = make_train_step(model, optimizer)
     batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in _on(batch, device).items()}
+    if pin is not None:
+        pin_decisions(model, pin)
     restore = _like_ranks(model) if like_ranks else (lambda: None)
     torch.use_deterministic_algorithms(True, warn_only=True)
     bs.reset_launches()
     try:
-        loss, tb = step(batch)
+        out = take_train_step(model, optimizer, batch)
+        keys = list(out["tb_dict"])
+        total = all_reduce_sum(torch.stack([out["loss"].detach()]
+                                           + [out["tb_dict"][k].detach() for k in keys]))
         torch.cuda.synchronize()
     finally:
         restore()
     counts = dict(bs.launches)
+    record = {"loss": float(total[0]), "tb": dict(zip(keys, total[1:].tolist())),
+              "launches": counts, "lr": optimizer.lr_fn(0),
+              "zero_grad": sorted(exact_zero_leaves(model))}
+    if hasattr(model, "corrector") and pin is None and dtype == torch.float32:
+        with torch.no_grad():
+            decisions, _ = corrector_decisions(model, batch, out)
+        record["decisions"] = {"decisions": decisions, "flow": out["points_flow3d"].detach().cpu()}
+    if pin is not None:
+        del model.corrector.move_points
     torch.use_deterministic_algorithms(False)
+    del out
     state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
-    times = []
+    grads = {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    step, times = make_train_step(model, optimizer), []
     for _ in range(timed):
         t0 = time.perf_counter()
         float(step(batch)[0])
         times.append((time.perf_counter() - t0) * 1e3)
-    return ({"loss": float(loss), "tb": {k: float(v) for k, v in tb.items()}, "launches": counts,
-             "step_ms": times}, state, grads, optimizer.lr_fn(0))
+    record["step_ms"] = times
+    return record, state, grads
 
 
-def _dp_rank(rank, seed, tmp, host):
-    """A rank of the 2-rank check: ``_dp_step`` in float32 and in float64 on
-    its share of ``host`` over gloo, written to ``{tmp}/rank{rank}.pt``."""
+def _dp_dtypes(name):
+    return (torch.float32,) if name == "ego_bf16" else (torch.float32, torch.float64)
+
+
+def _dp_rank(rank, seed, tmp, hosts, pins):
+    """A rank of the 2-rank check: ``_dp_step`` of each model in float32
+    (a sender's corrector decisions pinned to the one process's on this
+    rank's rows) and in float64 (BF16 in float32 only) on its share of
+    ``hosts`` over gloo, written to ``{tmp}/rank{rank}.pt``."""
     from pcp_tpu_torch.parallel import process_group, shard_batch
 
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2062,27 +2170,48 @@ def _dp_rank(rank, seed, tmp, host):
     # float32 in TF32: off, as phase 1 has it for the one process
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    out = {}
     with process_group(rank, DP_WORLD, f"file://{tmp}/rendezvous", "gloo"):
-        share = shard_batch(host, rank, DP_WORLD)
-        out = {str(dtype): _dp_step(seed, share, "cuda", dtype,
-                                    timed=DP_TIMED if dtype == torch.float32 else 0)[:3]
-               for dtype in (torch.float32, torch.float64)}
+        for name, host in hosts.items():
+            share = shard_batch(host, rank, DP_WORLD)
+            b = len(share["points"])
+            for dtype in _dp_dtypes(name):
+                pin = pins.get(name) if dtype == torch.float32 else None
+                if pin is not None:
+                    pin = {k: v[rank * b:(rank + 1) * b] for k, v in pin.items()}
+                timed = DP_TIMED if (name, dtype) == ("ego", torch.float32) else 0
+                out[f"{name} {dtype}"] = _dp_step(name, seed, share, "cuda", dtype, timed=timed,
+                                                  pin=pin)
         torch.save(out, Path(tmp) / f"rank{rank}.pt")
 
 
-def dp_errors(one, ranks, params, zero_grad):
+def grad_norm_error(got, want, names):
+    """The largest | ||got|| / ||want|| - 1 | over the leaves ``names``, and
+    its leaf: a leaf whose gradient was lost reads 1."""
+    err = {k: abs(float(got[k].double().norm()) / max(float(want[k].double().norm()), 1e-30) - 1)
+           for k in names}
+    worst = max(err, key=err.get)
+    return err[worst], worst
+
+
+def dp_errors(one, ranks):
     """The ranks' step against one process's: loss and terms (relative),
     running statistics, gradient entries over their leaf's largest |g| (and
-    the leaf where that is worst), the gradients' L2 error over all leaves,
-    parameters after the step, the conv biases in front of a BN apart; and
-    whether the ranks agree bitwise."""
+    the leaf where that is worst), each leaf's gradient norm against one
+    process's (``grad_norm_error``), the gradients' L2 error over all leaves,
+    parameters after the step, the exactly-zero leaves apart; and whether
+    the ranks agree bitwise."""
     (rec, state, grads), (rrec, rstate, rgrads) = one, ranks[0]
+    zero_grad = set(rec["zero_grad"])
+    params = set(grads)
     num = sum(float((rgrads[k] - grads[k]).double().pow(2).sum()) for k in params)
     den = sum(float(grads[k].double().pow(2).sum()) for k in params)
     entry = {k: (rgrads[k] - grads[k]).abs().max().item() / max(grads[k].abs().max().item(), 1e-30)
              for k in params - zero_grad}
     worst = max(entry, key=entry.get)
+    norm, norm_leaf = grad_norm_error(rgrads, grads, params - zero_grad)
     return {"loss": abs(rrec["loss"] - rec["loss"]) / abs(rec["loss"]),
+            "grad_norm": norm, "grad_norm_leaf": norm_leaf,
             "tb": max(abs(rrec["tb"][k] - v) / max(abs(v), 1e-30) for k, v in rec["tb"].items()),
             "stats": max((rstate[k] - v).abs().max().item() / max(v.abs().max().item(), 1.0)
                          for k, v in state.items() if "running_" in k),
@@ -2090,23 +2219,42 @@ def dp_errors(one, ranks, params, zero_grad):
             "grad_l2": (num / den) ** 0.5,
             "params": max((rstate[k] - state[k]).abs().max().item() for k in params - zero_grad),
             "zero_grad_biases": max([(rstate[k] - state[k]).abs().max().item()
-                                     for k in zero_grad] or [0.0]),
+                                     for k in zero_grad & params] or [0.0]),
             "ranks_bitwise_equal": all(torch.equal(ranks[0][1][k], r[1][k])
                                        for r in ranks[1:] for k in state)}
 
 
+def _dp_hosts(seed):
+    """Each model's global batch: the ego's and its BF16 twin's b2 x 32768
+    (``train_batch``), the car's b2 x 65536 (``sender_train_batch``, phase
+    7's), DiscoNet's two merged clouds (``disco_batch``, phase 10's, agent 3
+    out of the second)."""
+    from pcp_tpu_torch.config import CfgDict, cfg_from_yaml_file
+    from pcp_tpu_torch.models import DatasetInfo
+
+    cfgs = {name: cfg_from_yaml_file(path, CfgDict()) for name, (path, _) in DP_MODELS.items()}
+    info = {name: DatasetInfo.from_data_cfg(c.DATA_CONFIG, c.CLASS_NAMES) for name, c in cfgs.items()}
+    ego = train_batch(np.random.default_rng(seed + 5), DP_B, N, info["ego"])
+    disco = disco_batch(cfgs["disco"], DP_B, seed + 10)
+    return {"ego": ego,
+            "car": sender_train_batch(np.random.default_rng(seed + 5), DP_B, SENDER_N, info["car"]),
+            "disco": {k: v for k, v in disco.items() if torch.is_tensor(v)},
+            "ego_bf16": ego}
+
+
 def phase_dp(seed):
-    """Data-parallel training of the ego: ``entry.dryrun_multichip`` at the
-    card count over NCCL, then DP_WORLD ranks sharing the card over gloo on
-    CUDA tensors against one process, on the same b2 batch at full width,
-    in float32 through B1 (one launch a rank a step), the one process
-    standard and rounding as the ranks do, and in float64 (see DP_*), and
-    the float32 step's time. Returns (launches of each kernel per rank per
-    DP step, the record)."""
+    """Data-parallel training: ``entry.dryrun_multichip`` at the card count
+    over NCCL, then DP_WORLD ranks sharing the card over gloo on CUDA
+    tensors against one process, on the same global batch at full width:
+    the ego, the car and DiscoNet in float32 through B1 and in float64 (the
+    scatter's plain version), the ego also against the one process rounding
+    as the ranks do, and the ego in BF16, against one process and one
+    process rounding as the ranks do; the ego's float32 step time.
+    Returns (launches of each kernel per rank per DP step, by model; the
+    record)."""
     import tempfile
 
-    from pcp_tpu_torch.entry import build, dryrun_multichip
-    from pcp_tpu_torch.train.train_state import biases_before_bn
+    from pcp_tpu_torch.entry import dryrun_multichip
 
     n = torch.cuda.device_count()
     t0 = time.perf_counter()
@@ -2116,69 +2264,199 @@ def phase_dp(seed):
               f"MoDAR rows per rank {gate['modar_rows_per_rank']}, merged eval "
               f"{gate['merged_eval']} samples")
 
-    _, info, model = build(CFG_EGO, device="cpu")
-    zero_grad, params = biases_before_bn(model), {k for k, _ in model.named_parameters()}
-    del model
-    host = train_batch(np.random.default_rng(seed + 5), DP_B, N, info)
-    f32, f64 = str(torch.float32), str(torch.float64)
+    hosts = _dp_hosts(seed)
+    f32, f64 = torch.float32, torch.float64
     one, seconds = {}, {"gate": gate_s}
-    for key, dtype, like in ((f32, torch.float32, False), (f64, torch.float64, False),
-                             ("like_ranks", torch.float32, True)):
+    runs = [(name, dtype, False) for name in hosts for dtype in _dp_dtypes(name)] + [
+        (name, f32, True) for name in LIKE_RANKS_TOL]
+    for name, dtype, like in runs:
+        key = f"{name} {dtype}" + (" like_ranks" if like else "")
         t0 = time.perf_counter()
-        *one[key], lr = _dp_step(seed, host, "cuda", dtype, like_ranks=like,
-                                 timed=DP_TIMED if key == f32 else 0)
-        seconds[f"one_process_{key}"] = time.perf_counter() - t0
+        one[key] = _dp_step(name, seed, hosts[name], "cuda", dtype, like_ranks=like,
+                            timed=DP_TIMED if key == f"ego {f32}" else 0)
+        seconds[f"one_process {key}"] = time.perf_counter() - t0
+    pins = {"car": one[f"car {f32}"][0].pop("decisions")}
     (REPO / "build").mkdir(exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        torch.multiprocessing.spawn(_dp_rank, args=(seed, tmp, host), nprocs=DP_WORLD, join=True)
+        torch.multiprocessing.spawn(_dp_rank, args=(seed, tmp, hosts, pins), nprocs=DP_WORLD,
+                                    join=True)
         ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
-    seconds["ranks_both_dtypes"] = time.perf_counter() - t0
+    seconds["ranks"] = time.perf_counter() - t0
     log("dp", "seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    errs = {k: dp_errors(one[k], [r[k if k != "like_ranks" else f32] for r in ranks], params,
-                         zero_grad) for k in one}
-    # two one-process float32 steps that differ in rounding alone
-    errs["one_vs_like_ranks"] = dp_errors(one[f32], [one["like_ranks"]], params, zero_grad)
-    what = {f32: f"float32: {DP_WORLD} ranks over gloo on CUDA tensors (one card) vs one process",
-            f64: f"float64: {DP_WORLD} ranks vs one process",
-            "like_ranks": f"float32: {DP_WORLD} ranks vs one process rounding as the ranks do",
-            "one_vs_like_ranks": "float32: one process rounding as the ranks do vs one process"}
-    rank_launches = [r[f32][0]["launches"] for r in ranks]
+    errs = {key: dp_errors(one[key], [r[key.replace(" like_ranks", "")] for r in ranks])
+            for key in one}
+    # two one-process float32 steps of the ego that differ in rounding alone
+    errs["ego one_vs_like_ranks"] = dp_errors(one[f"ego {f32}"], [one[f"ego {f32} like_ranks"]])
+    shapes = {"ego": f"b{DP_B} x {N}", "ego_bf16": f"b{DP_B} x {N}",
+              "car": f"b{DP_B} x {SENDER_N}", "disco": f"b{DP_B} x {N} merged"}
     for key, e in errs.items():
-        log("dp", f"{what[key]}, b{DP_B} x {N}, full width: loss rel err {e['loss']:.3e}, terms "
-                  f"{e['tb']:.3e}, running statistics {e['stats']:.3e}, gradient entries "
-                  f"{e['grad_entry']:.3e} of their leaf's largest |g| (worst {e['grad_worst_leaf']}; "
-                  f"L2 over all leaves {e['grad_l2']:.3e}), parameters after the step "
-                  f"{e['params']:.3e}, conv biases before a BN {e['zero_grad_biases']:.3e} (lr "
-                  f"{lr:.3e}); ranks bitwise equal: {e['ranks_bitwise_equal']}")
-    single = one[f32][0]
-    log("dp", f"float32 launches a rank a step {rank_launches}; step time (host clock, {DP_TIMED} "
+        name = key.split()[0]
+        what = ("one process rounding as the ranks do vs one process" if "one_vs" in key else
+                f"{DP_WORLD} ranks over gloo on CUDA tensors (one card) vs one process"
+                + (" rounding as the ranks do" if "like_ranks" in key else "")
+                + (", ranks' corrector decisions pinned to the one process's"
+                   if key == f"car {f32}" else ""))
+        log("dp", f"{key}: {what}, {shapes[name]}, full width: loss rel err {e['loss']:.3e}, "
+                  f"terms {e['tb']:.3e}, running statistics {e['stats']:.3e}, gradient entries "
+                  f"{e['grad_entry']:.3e} of their leaf's largest |g| (worst "
+                  f"{e['grad_worst_leaf']}; L2 over all leaves {e['grad_l2']:.3e}; a leaf's norm "
+                  f"{e['grad_norm']:.3e} off, {e['grad_norm_leaf']}), parameters "
+                  f"after the step {e['params']:.3e}, exactly-zero leaves {e['zero_grad_biases']:.3e}"
+                  f" (lr {one[f'{name} {f32}'][0]['lr']:.3e}); ranks bitwise equal: "
+                  f"{e['ranks_bitwise_equal']}")
+    launches = {name: [r[f"{name} {f32}"][0]["launches"] for r in ranks] for name in hosts}
+    single = one[f"ego {f32}"][0]
+    log("dp", f"float32 launches a rank a step {launches}; ego step time (host clock, {DP_TIMED} "
               f"steps after the compared one): one process b{DP_B} {single['step_ms']} ms; each of "
               f"{DP_WORLD} ranks sharing the card, b{DP_B // DP_WORLD} a rank: "
-              + "; ".join(str(r[f32][0]["step_ms"]) for r in ranks))
-    limits = [(errs[key], k, lim) for key, tol in ((f32, DP_F32_TOL),
-                                                   ("like_ranks", DP_LIKE_RANKS_TOL))
-              for k, lim in {**tol, "params": DP_ADAM_FLIP * lr}.items()] + [
-        (errs[f64], k, DP_F64_TOL) for k in ("loss", "tb", "stats", "grad_entry", "params")] + [
-        (errs[f64], "zero_grad_biases", 2 * lr)]
-    bad = [(k, e[k], lim) for e, k, lim in limits if not e[k] <= lim]
-    if bad or not (errs[f32]["ranks_bitwise_equal"] and errs[f64]["ranks_bitwise_equal"]):
-        raise AssertionError(f"dp: beyond tolerance {bad}; ranks bitwise equal "
-                             f"{errs[f32]['ranks_bitwise_equal']}, "
-                             f"{errs[f64]['ranks_bitwise_equal']}")
-    for counts in rank_launches + [single["launches"], one["like_ranks"][0]["launches"]]:
-        if counts != {k: int(k == "bev_scatter_max") for k in counts}:
-            raise AssertionError(f"dp: expected one bev_scatter_max launch a step, got {counts}")
+              + "; ".join(str(r[f"ego {f32}"][0]["step_ms"]) for r in ranks))
+    limits = []
+    for name in hosts:
+        lr = one[f"{name} {f32}"][0]["lr"]
+        tols = [(f"{name} {f32}", DP_F32_TOL_BY_MODEL[name])]
+        if name in LIKE_RANKS_TOL:
+            tols.append((f"{name} {f32} like_ranks", LIKE_RANKS_TOL[name]))
+        for key, tol in tols:
+            limits += [(key, k, lim) for k, lim in {**tol, "params": DP_ADAM_FLIP * lr}.items()]
+        if f"{name} {f64}" in errs:
+            limits += [(f"{name} {f64}", k, DP_F64_TOL)
+                       for k in ("loss", "tb", "stats", "grad_entry", "params")]
+            limits.append((f"{name} {f64}", "zero_grad_biases", 2 * lr))
+    bad = [(key, k, errs[key][k], lim) for key, k, lim in limits if not errs[key][k] <= lim]
+    unequal = [key for key, e in errs.items() if "one_vs" not in key and "like_ranks" not in key
+               and not e["ranks_bitwise_equal"]]
+    per_step = {"ego": 1, "ego_bf16": 1, "car": 1, "disco": 7}
+    wrong = {name: c for name, counts in launches.items() for c in counts + [one[f"{name} {f32}"][0][
+        "launches"]] if c != {k: per_step[name] * int(k == "bev_scatter_max") for k in c}}
+    if bad or unequal or wrong:
+        raise AssertionError(f"dp: beyond tolerance {bad}; ranks not bitwise equal {unequal}; "
+                             f"launches other than B1's {per_step} a step: {wrong}")
     record = {"gate": gate, "seconds": seconds, "backend": "gloo on CUDA tensors, one card",
-              "errors": errs, "single_f32": single, "ranks_f32": [r[f32][0] for r in ranks]}
-    return rank_launches[0], record
+              "errors": errs, "single_f32": single,
+              "ranks_f32": {name: [r[f"{name} {f32}"][0] for r in ranks] for name in hosts}}
+    per_rank = {name: counts[0] for name, counts in launches.items()}
+    kernels = {k: {name: c[k] for name, c in per_rank.items()} for k in per_rank["ego"]}
+    return kernels, record
+
+
+# BF16 training of the ego at b4 x 32768 against the float32 step from the
+# same weights and batch: the loss and terms (relative), each gradient leaf
+# as a share of its largest |g| (the exactly-zero leaves apart) and over
+# all leaves in L2, each leaf's norm (``grad_norm_error``), the running
+# statistics (relative to max(1, |value|)). Limits: readings on an H100
+# 80GB HBM3 at 700 W with margin (loss 2.3e-3 and 3.0e-3, terms 2.9e-3 and
+# 3.2e-3, statistics 1.5e-4, gradient L2 0.28 and 0.29, worst entry 0.81
+# and 1.10: bfloat16's 2^-8 rounding grows through the 17 backbone layers;
+# a leaf's norm 0.56 off, the VFE's first layer, whose gradient sums the
+# rounded cotangent over every point). The entry's limit cannot tell a
+# lost leaf; the norm's, under the 1 that a lost or doubled leaf reads, can.
+BF16_B = 4
+BF16_TOL = {"loss": 1e-2, "tb": 1e-2, "stats": 1e-3, "grad_l2": 0.6, "grad_entry": 1.6,
+            "grad_norm": 0.8}
+
+
+def bf16_train(seed):
+    """The full-width ego's BF16 train step (``MODEL.BF16``) on the card
+    against its float32 step: one deterministic step each from the same
+    weights (``create_train_state``) on phase 5's b4 x 32768 batch, one B1
+    launch each; the parameters, optimizer moments and running statistics
+    stay float32; each step's time, forward+loss / backward / optimizer
+    split and peak memory (``time_train_steps``). Returns the record."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state, take_train_step
+
+    cfg, info, model = build(CFG_EGO, device="cuda")
+    batch = _on(train_batch(np.random.default_rng(seed + 2), BF16_B, N, info), "cuda")
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
+                                   total_epochs=1)
+    create_train_state(model, optimizer, seed)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    models = {"f32": model, "bf16": build(CFG_EGO, "cuda", set_cfgs=["MODEL.BF16", "True"])[2]}
+    steps = {}
+    for name, m in models.items():
+        m.load_state_dict(initial, strict=True)
+        opt, _ = build_optimizer(cfg.OPTIMIZATION, m, total_iters_each_epoch=TRAIN_STEPS,
+                                 total_epochs=1)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        bs.reset_launches()
+        out = take_train_step(m, opt, batch)
+        torch.cuda.synchronize()
+        torch.use_deterministic_algorithms(False)
+        moments = [v for st in opt.state.values() for v in st.values()
+                   if torch.is_tensor(v) and v.is_floating_point()]
+        steps[name] = {
+            "loss": out["loss"].item(), "tb": {k: v.item() for k, v in out["tb_dict"].items()},
+            "launches": dict(bs.launches), "bev_dtype": str(out["spatial_features_2d"].dtype),
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in m.named_parameters()},
+            "stats": {k: v.detach().cpu().clone() for k, v in m.state_dict().items()
+                      if "running_" in k},
+            "dtypes": sorted({str(p.dtype) for p in m.parameters()}
+                             | {str(v.dtype) for v in moments}
+                             | {str(v.dtype) for k, v in m.state_dict().items() if "running_" in k})}
+        del out
+        m.load_state_dict(initial, strict=True)
+        opt, _ = build_optimizer(cfg.OPTIMIZATION, m, total_iters_each_epoch=TRAIN_STEPS,
+                                 total_epochs=1)
+        steps[name]["step_ms"], steps[name]["split"], steps[name]["peak_bytes"] = time_train_steps(
+            m, opt, batch)
+    zero = exact_zero_leaves(model)
+    ref, got = steps["f32"], steps["bf16"]
+    params = set(ref["grads"]) - zero
+    entry = {k: (got["grads"][k] - ref["grads"][k]).abs().max().item()
+             / max(ref["grads"][k].abs().max().item(), 1e-30) for k in params}
+    worst = max(entry, key=entry.get)
+    num = sum(float((got["grads"][k] - ref["grads"][k]).double().pow(2).sum()) for k in params)
+    den = sum(float(ref["grads"][k].double().pow(2).sum()) for k in params)
+    norm, norm_leaf = grad_norm_error(got["grads"], ref["grads"], params)
+    errs = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm": norm, "grad_norm_leaf": norm_leaf,
+            "tb": max(abs(got["tb"][k] - v) / max(abs(v), 1e-30) for k, v in ref["tb"].items()),
+            "stats": max((got["stats"][k] - v).abs().max().item() / max(v.abs().max().item(), 1.0)
+                         for k, v in ref["stats"].items()),
+            "grad_entry": entry[worst], "grad_worst_leaf": worst, "grad_l2": (num / den) ** 0.5,
+            "grad_entry_by_group": {g: max(v for k, v in entry.items() if k.startswith(g + "."))
+                                    for g in ("vfe", "backbone_2d", "dense_head")}}
+    for name, st in steps.items():
+        log("dp", f"bf16_train {name}: b{BF16_B} x {N} train step, full width: loss {st['loss']:.6f}, "
+                  f"launches {st['launches']}, spatial_features_2d {st['bev_dtype']}, parameters, "
+                  f"moments and statistics {st['dtypes']}; median {st['step_ms']:.6f} ms over 10 "
+                  "steps after 3 warm-ups (host clock, synchronized); split (median ms, CUDA events; host_*: the host's clock to issue it) "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in st["split"].items())
+                  + f"; peak memory allocated {st['peak_bytes']} bytes "
+                  f"({st['peak_bytes'] / 2**30:.3f} GiB)")
+    log("dp", f"bf16_train: BF16 vs float32 step from the same weights and batch: loss rel err "
+              f"{errs['loss']:.3e}, terms {errs['tb']:.3e}, running statistics {errs['stats']:.3e}, "
+              f"gradient entries {errs['grad_entry']:.3e} of their leaf's largest |g| (worst "
+              f"{worst}; by group {errs['grad_entry_by_group']}; L2 over all leaves "
+              f"{errs['grad_l2']:.3e}; a leaf's norm {norm:.3e} off, {norm_leaf}); limits {BF16_TOL}")
+    bad = [(k, errs[k], lim) for k, lim in BF16_TOL.items() if not errs[k] <= lim]
+    if got["dtypes"] != ["torch.float32"] or got["bev_dtype"] != "torch.float32":
+        bad.append(("dtypes", got["dtypes"], got["bev_dtype"]))
+    for name, st in steps.items():
+        if st["launches"] != {k: int(k == "bev_scatter_max") for k in st["launches"]}:
+            bad.append((f"{name} launches", st["launches"]))
+    if bad:
+        raise AssertionError(f"bf16_train: {bad}")
+    return {"batch": BF16_B, "points": N, "errors": errs, "limits": BF16_TOL,
+            **{name: {k: v for k, v in st.items() if k not in ("grads", "stats")}
+               for name, st in steps.items()}}
 
 # ------------------------------------------------------------ 9. pipeline
 
-# the SMOKE=1 world, points and epochs of workspace/synth_experiments.sh:29-31
+# the SMOKE=1 world, points, epochs and loader workers of
+# workspace/synth_experiments.sh:29-31
 PIPELINE_SYN = ("{'NUM_SCENES': 3, 'KEYFRAMES_PER_SCENE': 4, 'NUM_CARS': 12, 'NUM_PEDS': 4, "
                 "'WORLD': 'urban', 'NUM_PARKED': 8}")
 PIPELINE_NPTS, PIPELINE_EPOCHS, PIPELINE_WORKERS = 16384, 2, 4
+# The stages whose loader spawns PIPELINE_WORKERS workers, a train and an
+# eval loader; the others load in the main process (``--workers 0``, the
+# same items): a spawned worker takes about 9 s to start on the card's
+# host, which made most of a stage's time (on an H100's host the 18 stages
+# took 223 s with one worker a loader, 34 s with none).
+WORKER_STAGES = ("train_car", "eval_lately_async")
 PIPELINE_CFGS = "tools/cfgs/v2x_sim_models/{}.yaml"
 
 
@@ -2189,8 +2467,9 @@ def _pipeline_stages(root):
     ego, the evaluations lately_sync, lately_async, early_sync and car, the
     late-fusion evaluations late_sync (NMS) and late_sync_wnms (weighted box
     fusion), the lately ego fed oracle senders (lately_oracleswap_sync) and
-    with half the broadcasts dropped (lately_drop05_async), then the
-    single-agent ego and its evaluation."""
+    with half the broadcasts dropped (lately_drop05_async), the single-agent
+    ego and its evaluation, then DiscoNet trained and evaluated. The loaders
+    of WORKER_STAGES spawn PIPELINE_WORKERS workers, the others none."""
     from pcp_tpu_torch.tools import test as test_cli
     from pcp_tpu_torch.tools import train as train_cli
     from pcp_tpu_torch.workspace import v2x_gen_exchange_database as genx
@@ -2200,8 +2479,10 @@ def _pipeline_stages(root):
               "DATA_CONFIG.MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS),
               "DATA_CONFIG.SYNTHETIC", PIPELINE_SYN, "DATA_CONFIG.MINI_TRAINVAL_STRIDE", "1",
               "DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY", exch, "OPTIMIZATION.LR", "0.003"]
-    base = ["--batch_size", "4", "--device", "cuda", "--workers", str(PIPELINE_WORKERS),
-            "--output_root", str(root)]
+    base = ["--batch_size", "4", "--device", "cuda", "--output_root", str(root)]
+
+    def workers(name):
+        return ["--workers", str(PIPELINE_WORKERS if name in WORKER_STAGES else 0)]
 
     def run_dir(cfg, tag):
         return root / "cfgs" / "v2x_sim_models" / cfg / tag
@@ -2211,16 +2492,16 @@ def _pipeline_stages(root):
 
     def train(name, cfg, tag, ratio, *extra):
         return (name, "train", train_cli.main,
-                lambda: ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, "--extra_tag", tag,
-                         "--epochs", str(PIPELINE_EPOCHS), "--num_epochs_to_eval", "0",
-                         "--profile", "--set", *common,
+                lambda: ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, *workers(name),
+                         "--extra_tag", tag, "--epochs", str(PIPELINE_EPOCHS),
+                         "--num_epochs_to_eval", "0", "--profile", "--set", *common,
                          "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", str(ratio), *extra],
                 run_dir(cfg, tag))
 
     def gen(agent):
         return (f"gen_exchange_{agent}", "gen", genx.main,
                 lambda: ["--agent", agent, "--ckpt", ckpt(f"v2x_pointpillar_basic_{agent}", "smoke"),
-                         "--synthetic", "--device", "cuda", "--workers", str(PIPELINE_WORKERS),
+                         "--synthetic", "--device", "cuda", *workers(f"gen_exchange_{agent}"),
                          "--set", "MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS), "SYNTHETIC",
                          PIPELINE_SYN, "MINI_TRAINVAL_STRIDE", "1",
                          "EXCHANGE_DATABASE_DIRECTORY", exch], None)
@@ -2228,9 +2509,9 @@ def _pipeline_stages(root):
     def ev(name, cfg, tag, *extra):
         weights = [] if cfg == "v2x_late_fusion" else ["--ckpt", ckpt(cfg, tag)]
         return (f"eval_{name}", "late" if not weights else "eval", test_cli.main,
-                lambda: ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, "--extra_tag", tag,
-                         *weights, "--eval_tag", name, "--infer_time", "--set", *common,
-                         "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", "1", *extra],
+                lambda: ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, *workers(f"eval_{name}"),
+                         "--extra_tag", tag, *weights, "--eval_tag", name, "--infer_time", "--set",
+                         *common, "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", "1", *extra],
                 run_dir(cfg, tag))
 
     car, rsu = "v2x_pointpillar_basic_car", "v2x_pointpillar_basic_rsu"
@@ -2240,15 +2521,15 @@ def _pipeline_stages(root):
     for key, (cfg, tag) in DISCO_MAKERS.items():
         makers += [f"MODEL.{key}.CKPT", ckpt(cfg, tag)]
     sync, single = ("DATA_CONFIG.EXCHANGE_PREVIOUS", "False"), ("DATA_CONFIG.EXCHANGE_MODAR", "False")
+    now = ("DATA_CONFIG.EXCHANGE_SETTING", "now")
     return [train("train_car", car, "smoke", 4), train("train_rsu", rsu, "smoke", 1),
             gen("car"), gen("rsu"), train("train_ego", ego, "smoke", 1),
             train("train_early_sync", early, "smoke_sync", 1, *sync),
             ev("lately_sync", ego, "smoke", "DATA_CONFIG.EXCHANGE_NOW", "True"),
             ev("lately_async", ego, "smoke"), ev("early_sync", early, "smoke_sync", *sync),
             ev("car", car, "smoke"),
-            ev("late_sync", late, "smoke", "DATA_CONFIG.EXCHANGE_SETTING", "now"),
-            ev("late_sync_wnms", late, "smoke", "DATA_CONFIG.EXCHANGE_SETTING", "now",
-               "MODEL.BOX_FUSION_METHOD", "weighted_nms"),
+            ev("late_sync", late, "smoke", *now),
+            ev("late_sync_wnms", late, "smoke", *now, "MODEL.BOX_FUSION_METHOD", "weighted_nms"),
             ev("lately_oracleswap_sync", ego, "smoke", "DATA_CONFIG.EXCHANGE_ORACLE", "True",
                "DATA_CONFIG.EXCHANGE_NOW", "True"),
             ev("lately_drop05_async", ego, "smoke", "DATA_CONFIG.EXCHANGE_DROPOUT", "0.5"),
@@ -2432,7 +2713,6 @@ def phase_pipeline():
 
 # ------------------------------------------------------------- 10. disco
 
-CFG_DISCO = REPO / "tools" / "cfgs" / "v2x_sim_models" / "v2x_pointpillar_disco.yaml"
 # the synvf world, cut to a few scenes: the clouds of the DiscoNet rows
 DISCO_SYN = ("{'NUM_SCENES': 6, 'KEYFRAMES_PER_SCENE': 3, 'NUM_CARS': 24, 'NUM_PEDS': 8, "
              "'WORLD': 'urban', 'NUM_PARKED': 16, 'VISIBLE_FACES': True}")
@@ -2711,9 +2991,12 @@ def main(argv=None):
     lap("serving")
     dp_launches, dp = phase_dp(args.seed)
     lap("dp")
+    bf16 = bf16_train(args.seed)
+    lap("bf16_train")
     for kernel, record in records.items():
         record["launches_per_serving_forward"] = {m: c[kernel] for m, c in serving_launches.items()}
         record["launches_per_dp_step_per_rank"] = dp_launches[kernel]
+        record["launches_per_bf16_train_step"] = bf16["bf16"]["launches"][kernel]
     wire = senders["exchange"]["wire"].values()
     disco_eval, disco_train, disco = phase_disco(
         args.seed, statistics.mean(v["boxflow_bytes"] for v in wire))
@@ -2731,6 +3014,7 @@ def main(argv=None):
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
                       "sender_train": sender_train, "trained_ego": trained,
                       "bench_profile": bench["profile"], "serving": serving, "dp": dp,
+                      "bf16_train": bf16,
                       "disco": disco, "pipeline": pipeline, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

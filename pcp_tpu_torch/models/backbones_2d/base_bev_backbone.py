@@ -13,7 +13,9 @@ The JAX package's serving switches, each inference-time:
 
 * ``FOLD_BN``: every BN is baked into the conv in front of it, which gains a
   bias; the BN's slot holds ``nn.Identity`` so that the indices stay pcdet's.
-  Load a trained state dict through :func:`fold_bn_state_dict`.
+  Load a trained state dict through :func:`fold_bn_state_dict`. Training
+  raises: the fold is a serving form of trained weights, as the JAX package
+  documents it (there is no BN left to train).
 * ``W_PACK``: levels of at most 64 filters and stride 1 or 2 run on a
   width-packed layout, (B, 2C, H, W/2) with channel blocks [w-even | w-odd]
   (:func:`pack_width`), with structured kernels (:func:`pack_kernel`) that
@@ -23,7 +25,8 @@ The JAX package's serving switches, each inference-time:
 * ``BF16`` (or ``bf16=True``, from ``MODEL.BF16``): convs and BNs compute in
   bfloat16 as flax's ``dtype=bfloat16`` does (``model_utils/precision.py``,
   ``norm.BatchNorm2d``); parameters and statistics stay float32 and
-  ``spatial_features_2d`` comes back float32. Serving only.
+  ``spatial_features_2d`` comes back float32. It serves and trains: the
+  gradient flows through the casts to float32 parameters, as JAX's does.
 """
 import numpy as np
 import torch
@@ -138,7 +141,7 @@ class BaseBEVBackbone(nn.Module):
     def __init__(self, model_cfg, input_channels, bf16=False):
         super().__init__()
         self.dtype = torch.bfloat16 if (bf16 or model_cfg.get("BF16", False)) else None
-        folded = bool(model_cfg.get("FOLD_BN", False))
+        self.folded = folded = bool(model_cfg.get("FOLD_BN", False))
         self.packed_levels = wpack_levels(model_cfg)
         layer_nums = list(model_cfg.get("LAYER_NUMS", []))
         layer_strides = list(model_cfg.get("LAYER_STRIDES", []))
@@ -179,8 +182,8 @@ class BaseBEVBackbone(nn.Module):
                                  else (num_filters[-1] if num_filters else input_channels))
 
     def forward(self, batch):
-        if self.training and self.dtype is not None:
-            raise NotImplementedError("BF16 training is not ported yet (ROADMAP A13b)")
+        if self.training and self.folded:
+            raise RuntimeError("FOLD_BN is inference-only (the BNs are folded into the convs)")
         if self.training and self.packed_levels:
             raise RuntimeError("W_PACK is inference-only (BN statistics are per channel)")
         x = batch["spatial_features"]

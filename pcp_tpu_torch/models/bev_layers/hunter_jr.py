@@ -31,6 +31,7 @@ the JAX package does.
 import torch
 from torch import nn
 
+from ...parallel.collective import all_reduce_sum
 from ..loss_fnc.lovasz import ce_lovasz_loss
 from ..model_utils.norm import BatchNorm2d
 from .hunter_toolbox import (MLP, bev_scatter, bilinear_interpolate_bev,
@@ -50,8 +51,10 @@ def smooth_l1(x):
 
 
 def _masked_mean(err, mask):
-    """Mean of ``err`` over ``mask``, divided by max(count, 1) as float32."""
-    return torch.where(mask, err, err.new_zeros(())).sum() / mask.sum().clamp(min=1).to(err.dtype)
+    """Mean of ``err`` over ``mask``, divided by max(count, 1) as float32:
+    this rank's sum over the global count."""
+    count = all_reduce_sum(mask.sum()).clamp(min=1).to(err.dtype)
+    return torch.where(mask, err, err.new_zeros(())).sum() / count
 
 
 class HunterPointHead(nn.Module):
@@ -291,7 +294,7 @@ class HunterJr(nn.Module):
             smooth_l1(pred_corrected - corrected).sum(1), fg_mos, flat_fg, hard_fg) * 0.1
         # the local features distilled into the point head
         l_dtl = _masked_mean(smooth_l1(flat_local_feat - locals_feat[fg_lid]).sum(1), flat_fg) * 0.1
-        any_fg = flat_fg.any()
+        any_fg = all_reduce_sum(flat_fg.sum()) > 0
         tb["l_dtl_locals_feat"] = l_dtl = torch.where(any_fg, l_dtl, zero)
         l_transl, l_rot, l_recon = (torch.where(any_fg, v, zero) for v in (l_transl, l_rot, l_recon))
         loss = l_cls + l_embed + l_offset + l_transl + l_rot + l_recon + l_dtl

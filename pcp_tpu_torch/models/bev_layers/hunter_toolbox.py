@@ -12,6 +12,7 @@ it: a corner gather then reads rows of C contiguous floats.
 import torch
 from torch import nn
 
+from ...parallel.collective import all_gather, all_reduce_sum, whole_share
 from ..model_utils.norm import MaskedBatchNorm
 
 
@@ -126,23 +127,29 @@ def hard_mining_regression_loss(loss_all, mask_positive, valid, neg_to_pos_ratio
     positive), with the JAX package's static shapes: the negatives are ranked
     by a stable descending sort (equal losses keep index order, which decides
     where the gradient goes) and the count becomes a rank mask. Counts stay on
-    the device; every division is by a float32 tensor."""
+    the device; every division is by a float32 tensor.
+
+    Under a process group of more than one rank the counts, ``k`` and the
+    positives' mean are the global batch's (this rank's positives over the
+    global count), and the negatives are ranked over every rank's rows in
+    the global order, the top-k mean entering each rank's loss at
+    ``1 / world`` (``parallel/collective.py``'s rule)."""
     zero = loss_all.new_zeros(())
     loss_all = torch.where(valid, loss_all, zero)
     pos = mask_positive & valid
     neg = ~mask_positive & valid
-    num_pos = pos.sum()
-    num_neg = neg.sum()
+    num_pos = all_reduce_sum(pos.sum())
+    num_neg = all_reduce_sum(neg.sum())
     loss_pos_mean = torch.where(pos, loss_all, zero).sum() / num_pos.clamp(min=1).to(loss_all.dtype)
 
-    neg_losses = torch.where(neg, loss_all, loss_all.new_full((), float("-inf")))
+    neg_losses = all_gather(torch.where(neg, loss_all, loss_all.new_full((), float("-inf"))))
     order = torch.sort(-neg_losses, stable=True).indices
     ranked = neg_losses[order]
     ranked = torch.where(torch.isfinite(ranked), ranked, zero)
-    ranks = torch.arange(loss_all.shape[0], device=loss_all.device)
+    ranks = torch.arange(neg_losses.shape[0], device=loss_all.device)
     k = torch.where(num_pos > 0, torch.minimum(num_pos * neg_to_pos_ratio, num_neg),
                     num_neg.clamp(max=num_negative_when_no_positive))
-    top_neg_mean = (torch.where(ranks < k, ranked, zero).sum()
-                    / k.clamp(min=1).to(loss_all.dtype))
+    top_neg_mean = whole_share(torch.where(ranks < k, ranked, zero).sum()
+                               / k.clamp(min=1).to(loss_all.dtype))
     with_pos = loss_pos_mean + torch.where(num_neg > 0, top_neg_mean, zero)
     return torch.where(num_pos > 0, with_pos, top_neg_mean)

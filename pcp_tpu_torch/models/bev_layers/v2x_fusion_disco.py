@@ -7,7 +7,9 @@ weightor scores every (ego, agent) pair, and the softmax over agents of
 those scores weights the sum, which the decompressor brings back to the
 backbone's width. In training, with an early-fusion teacher BEV
 (``bev_img_early``), ``distill_loss`` is the smooth-L1 between the channel
-softmaxes of the fused and the teacher BEV, times 10.
+softmaxes of the fused and the teacher BEV, times 10: under a process group
+of more than one rank, this rank's sum over the global batch's element count
+(``parallel/collective.py``'s rule).
 
 Maps are (B, C, H, W); the softmaxes run over the JAX package's axes
 (channels for the distillation loss, agents for the weights). BNs follow
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.collective import all_reduce_sum
 from ..model_utils.norm import BatchNorm2d
 from .hunter_jr import smooth_l1
 
@@ -128,6 +131,7 @@ class V2XMidFusionDisco(nn.Module):
         fused = self.decompressor(fused)
         if self.training and "bev_img_early" in batch:
             diff = torch.softmax(fused, dim=1) - torch.softmax(batch["bev_img_early"], dim=1)
-            out["distill_loss"] = smooth_l1(diff).mean() * 10.0
+            err = smooth_l1(diff)
+            out["distill_loss"] = err.sum() / all_reduce_sum(err.new_full((), err.numel())) * 10.0
         out["spatial_features_2d"] = fused
         return out

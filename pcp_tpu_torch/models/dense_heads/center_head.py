@@ -14,7 +14,8 @@ conv biases before a BN follow ``USE_BIAS_BEFORE_NORM``; the hm output bias
 starts at -2.19. Feature maps are (B, C, H, W); decode, targets and the
 heatmap loss take them in the JAX layout (B, H, W, C). With ``BF16`` (or
 ``bf16=True``, from ``MODEL.BF16``) the convs and BNs serve in bfloat16 as
-flax's ``dtype=bfloat16`` does, and each branch's output comes back float32.
+flax's ``dtype=bfloat16`` does, and each branch's output comes back float32,
+in training too: the loss runs on those float32 outputs.
 """
 import torch
 import torch.nn.functional as F
@@ -89,8 +90,6 @@ class CenterHead(nn.Module):
         self.heads_list = nn.ModuleList(heads)
 
     def forward(self, batch):
-        if self.training and self.dtype is not None:
-            raise NotImplementedError("BF16 training is not ported yet (ROADMAP A13b)")
         x = self.shared_conv(batch["spatial_features_2d"])
         pred_dicts = [head(x) for head in self.heads_list]
         out = dict(batch)

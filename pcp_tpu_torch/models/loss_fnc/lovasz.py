@@ -6,8 +6,17 @@ mask keeps padding rows out of the class statistics and the Lovász
 gradient. Errors are ranked by a stable descending sort, as ``jnp.argsort``
 ranks them: equal errors keep index order, which decides where the gradient
 goes. Every division is by a float32 tensor.
+
+Under a process group of more than one rank both terms are the global
+batch's (``parallel/collective.py``'s rule): the class counts and the CE
+normaliser are summed over the ranks, each rank's CE its rows' share; the
+Lovász term ranks the errors of every rank's rows, gathered in the global
+order, decides which classes are present over them, and enters each rank's
+loss at ``1 / world``.
 """
 import torch
+
+from ...parallel.collective import all_gather, all_reduce_sum, whole_share
 
 _EPS = 1e-5
 
@@ -24,7 +33,9 @@ def _lovasz_grad_masked(gt_sorted, valid_sorted):
 
 def lovasz_softmax(probs, labels, valid):
     """probs (N, C) class probabilities, labels (N,) int, valid (N,) bool ->
-    the mean over present classes of the Lovász hinge on their errors."""
+    the mean over present classes of the Lovász hinge on their errors (this
+    rank's share of the global batch's)."""
+    probs, labels, valid = all_gather(probs, labels, valid)
     valid_f = valid.to(probs.dtype)
     losses, present = [], []
     for cls in range(probs.shape[1]):
@@ -37,7 +48,7 @@ def lovasz_softmax(probs, labels, valid):
                                   errors.new_zeros(())))
         present.append(class_present)
     present = torch.stack(present).to(probs.dtype)
-    return torch.stack(losses).sum() / torch.clamp(present.sum(), min=1.0)
+    return whole_share(torch.stack(losses).sum() / torch.clamp(present.sum(), min=1.0))
 
 
 def ce_lovasz_loss(logits, labels, valid, num_classes, max_weight=50.0):
@@ -45,12 +56,12 @@ def ce_lovasz_loss(logits, labels, valid, num_classes, max_weight=50.0):
     frequency among the valid rows (clipped at ``max_weight``), plus
     Lovász-softmax. logits (N, C), labels (N,) int, valid (N,) bool."""
     valid_f = valid.to(logits.dtype)
-    counts = torch.stack([((labels == c) & valid).to(logits.dtype).sum()
-                          for c in range(num_classes)]) + _EPS
+    counts = all_reduce_sum(torch.stack([((labels == c) & valid).to(logits.dtype).sum()
+                                         for c in range(num_classes)])) + _EPS
     weights = torch.clamp(torch.sqrt(counts.sum() / counts), 0.0, max_weight)
 
     labels_c = torch.clamp(labels, 0, num_classes - 1).long()
     nll = -torch.log_softmax(logits, dim=-1).gather(1, labels_c[:, None])[:, 0]
     w = weights[labels_c] * valid_f
-    loss_ce = (nll * w).sum() / torch.clamp(w.sum(), min=_EPS)
+    loss_ce = (nll * w).sum() / torch.clamp(all_reduce_sum(w.sum()), min=_EPS)
     return loss_ce + lovasz_softmax(torch.softmax(logits, dim=-1), labels_c, valid)

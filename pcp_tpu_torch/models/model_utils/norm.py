@@ -7,9 +7,15 @@
 * :class:`BatchNorm2d`, counterpart of flax ``nn.BatchNorm`` (backbone and
   head): the running variance takes the *biased* batch variance. Flax
   momentum ``m`` is torch momentum ``1 - m``. With ``compute_dtype``
-  bfloat16 it serves as flax's ``BatchNorm(dtype=bfloat16)`` does: from the
-  bfloat16 input, ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
-  float32, rounded to bfloat16 (flax ``normalization.py::_normalize``).
+  bfloat16 it computes as flax 0.12's ``BatchNorm(dtype=bfloat16)`` does
+  (``normalization.py``): the batch statistics are taken in float32 from the
+  bfloat16 input, ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` runs in
+  float32 and is rounded once to bfloat16 (``_normalize``), and the running
+  statistics update in float32. Flax's variance is ``E[x^2] - E[x]^2``
+  (``use_fast_variance``); the port's is ``E[(x - E[x])^2]`` in every
+  precision (torch's ``F.batch_norm`` in one float32 process, two passes by
+  hand otherwise). The two differ by float32 rounding alone, which the tests
+  against flax do not tell apart.
 
 Both keep pcdet's state-dict names (weight, bias, running_mean, running_var,
 num_batches_tracked), and both normalise a training batch by its biased
@@ -70,7 +76,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``(1 - m) r + m v_unbiased`` is brought to ``(1 - m) r + m v_biased`` by
     scaling its batch term by ``(n - 1) / n``: C values, no second pass over
     the activations; torch updates a copy, since autograd keeps the tensor it
-    was given. Under several ranks the moments are the global batch's."""
+    was given. Under several ranks the moments are taken by hand
+    (:meth:`_global_batch_forward`), the global batch's. With a
+    ``compute_dtype`` they are taken by hand in one process too, so that
+    one process and the ranks share their arithmetic: through
+    ``F.batch_norm`` in one process, the small ego's BF16 step under two
+    ranks differs from one process's by 1.0e-3 in the loss, ten times
+    ``tests/test_torch_parallel_senders.py::test_bf16_step_under_ranks``'s
+    limit, as bfloat16 roundings that flip grow through the layers."""
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -84,7 +97,7 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = (x.float() - self.running_mean[:, None, None]) * mul + self.bias[:, None, None]
             return y.to(self.compute_dtype)
         self.num_batches_tracked.add_(1)
-        if get_dist_info()[1] > 1:
+        if self.compute_dtype is not None or get_dist_info()[1] > 1:
             return self._global_batch_forward(x)
         updated = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, updated, self.weight, self.bias, True,
@@ -96,13 +109,25 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
     def _global_batch_forward(self, x):
+        """Training statistics over every rank's rows in two passes, from
+        ``x`` in float32 under a ``compute_dtype``, and then flax's
+        ``_normalize`` rounded once. The row count is filled on the device:
+        a tensor made from a host list would be a blocking copy that drains
+        the card's queue at every BN."""
         c = x.shape[1]
-        sums = all_reduce_sum(torch.cat([rank_sum(x, (0, 2, 3)), x.new_tensor([x.numel() // c])]))
+        dtype = self.compute_dtype
+        if dtype is not None:
+            x = x.float()
+        sums = all_reduce_sum(torch.cat([rank_sum(x, (0, 2, 3)),
+                                         x.new_full((1,), x.numel() // c)]))
         mean = sums[:c] / sums[c]
         var = all_reduce_sum(rank_sum((x - mean[:, None, None]) ** 2, (0, 2, 3))) / sums[c]
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
             self.running_var.mul_(1 - m).add_(m * var)
+        if dtype is not None:
+            mul = (torch.rsqrt(var + self.eps) * self.weight)[:, None, None]
+            return ((x - mean[:, None, None]) * mul + self.bias[:, None, None]).to(dtype)
         y = (x - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
         return y * self.weight[:, None, None] + self.bias[:, None, None]

@@ -12,6 +12,21 @@ loss normalisers over every device's rows, and the gradient of that loss.
 cotangents) and :func:`all_reduce_gradients` are what give the port's step
 the same semantics (``models/model_utils/norm.py``,
 ``models/loss_fnc/centernet_losses.py``, ``train/train_state.py``).
+
+**Losses over the global batch.** ``make_train_step`` sums the ranks' loss
+shares and ``all_reduce_gradients`` sums their gradients, so each rank's
+loss must be its share of the one-process loss over the global batch:
+
+* a loss that is a sum over rows divided by a count (a masked mean, a CE
+  normaliser, a mean over pixels) takes this rank's sum over the global
+  count (:func:`all_reduce_sum` of the count);
+* a loss that is not a sum over rows (a Lovász extension, a top-k of
+  negatives) is computed whole on every rank from the global rows, which
+  :func:`all_gather` gives in the one-process order, and enters each rank's
+  loss at ``1 / world`` (:func:`whole_share`). Every rank's cotangent of a
+  gathered row is then ``1 / world`` of the whole loss's, and
+  :func:`all_gather`'s backward sums the ``world`` ranks' cotangents into
+  the rows' owner: each row gets the whole loss's gradient once.
 """
 import torch
 import torch.distributed as dist
@@ -84,6 +99,61 @@ def all_reduce_sum(tensor):
     from torch.distributed.nn.functional import all_reduce
 
     return all_reduce(tensor)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """The ranks' rows concatenated in rank order; the backward sums every
+    rank's cotangent of the result and hands each rank its own rows'."""
+
+    @staticmethod
+    def forward(ctx, tensor, sizes):
+        rank = dist.get_rank()
+        padded = tensor.new_zeros((max(sizes),) + tuple(tensor.shape[1:]))
+        padded[:len(tensor)] = tensor
+        parts = [torch.empty_like(padded) for _ in sizes]
+        dist.all_gather(parts, padded)
+        ctx.start, ctx.rows = sum(sizes[:rank]), sizes[rank]
+        return torch.cat([p[:n] for p, n in zip(parts, sizes)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad[ctx.start:ctx.start + ctx.rows], None
+
+
+def all_gather(*tensors):
+    """Every rank's rows of each of ``tensors`` (which share their first
+    axis) concatenated in rank order, differentiable (see the module's
+    rule); one tensor for one, a tuple for several. Rank r holds rows
+    ``[r * b, (r + 1) * b)`` of the global batch (``mesh.shard_batch``, the
+    loader's rank split), so a flat (B * N, ...) tensor comes back in the
+    one-process row order, and a stable sort of it breaks ties as one
+    process does. The ranks may hold different numbers of rows; the one
+    exchange of the counts waits for the card, once for all ``tensors``.
+    The tensors themselves in one process."""
+    _, world = get_dist_info()
+    if world > 1:
+        count = torch.full((1,), len(tensors[0]), device=tensors[0].device, dtype=torch.int64)
+        counts = [torch.empty_like(count) for _ in range(world)]
+        dist.all_gather(counts, count)
+        sizes = torch.cat(counts).tolist()
+        # gloo and NCCL gather bytes, not bools
+        tensors = tuple(_AllGatherRows.apply(t.to(torch.uint8), sizes).bool()
+                        if t.dtype == torch.bool else _AllGatherRows.apply(t.contiguous(), sizes)
+                        for t in tensors)
+    return tensors[0] if len(tensors) == 1 else tensors
+
+
+def whole_share(value):
+    """This rank's share of a loss that every rank computes whole from
+    :func:`all_gather`'s rows: ``value / world`` (divided by a tensor filled
+    on the device, as every division of the port is by a tensor); ``value``
+    in one process."""
+    _, world = get_dist_info()
+    if world == 1:
+        return value
+    return value / torch.full((), float(world), dtype=value.dtype, device=value.device)
 
 
 @torch.no_grad()

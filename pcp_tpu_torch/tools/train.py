@@ -21,9 +21,11 @@ pytorch`` the process is one rank of a data-parallel run (pcdet's flag;
 ``LOCAL_RANK`` and the rendezvous): NCCL between cards (rank r on
 ``cuda:LOCAL_RANK``), gloo with ``--device cpu``. ``--batch_size`` stays the
 global batch; each rank takes its share (``datasets/loader.py``), the step
-is the one-process step over the global batch (``train/train_state.py``;
-the ego only, ROADMAP A10b), and rank 0 alone logs, saves and writes the
-evaluation's files.
+is the one-process step over the global batch (``train/train_state.py``),
+for every model the port builds, and rank 0 alone logs, saves and writes
+the evaluation's files. ``--set MODEL.BF16 True`` trains the backbone and
+the head in bfloat16 as the JAX package's ``MODEL.BF16`` does; parameters,
+optimizer state, running statistics and checkpoints stay float32.
 """
 import argparse
 import datetime

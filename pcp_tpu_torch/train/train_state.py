@@ -9,10 +9,10 @@ update), backward, then the optimizer step, which clips by global norm,
 updates and counts the step. Under a process group of more than one rank
 (``parallel/``) the step is the one-process step over the global batch:
 batch statistics and loss normalisers are global (``norm.py``,
-``centernet_losses.py``), each rank's loss is its share of the global loss,
-the gradients are summed over the ranks before the optimizer, and the loss
-and terms the step returns are the global ones. Only the ego trains so;
-the senders and DiscoNet raise (ROADMAP A10b).
+``centernet_losses.py``; the senders' corrector losses and DiscoNet's
+distillation by ``parallel/collective.py``'s rule), each rank's loss is its
+share of the global loss, the gradients are summed over the ranks before
+the optimizer, and the loss and terms the step returns are the global ones.
 
     cfg, info, model = build(CFG_EGO, device="cuda")
     optimizer, lr_fn = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch, epochs)
@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ..models.model_utils.norm import MaskedBatchNorm
-from ..parallel.collective import all_reduce_gradients, all_reduce_sum, get_dist_info
+from ..parallel.collective import all_reduce_gradients, all_reduce_sum
 
 # flax's lecun_normal: a normal truncated at +-2 std, scaled back to unit
 # variance by this factor (jax.nn.initializers.variance_scaling)
@@ -89,9 +89,6 @@ def take_train_step(model, optimizer, batch):
     global batch under a process group): zero the gradients, forward in
     training mode, backward, sum the gradients over the ranks, optimizer
     step. Returns the forward's outputs (this rank's loss share)."""
-    if get_dist_info()[1] > 1 and any(hasattr(model, k) for k in ("corrector", "v2x_mid_fusion")):
-        raise NotImplementedError("data-parallel training of the senders and DiscoNet is not "
-                                  "ported yet (ROADMAP A10b)")
     model.train()
     optimizer.zero_grad(set_to_none=True)
     out = model(batch)

@@ -11,7 +11,8 @@
 * the ego's exchange levers on a database both read (boxflow, the legacy
   modar + foreground pooling, EXCHANGE_NOW, no flow propagation,
   EXCHANGE_ORACLE, EXCHANGE_ORACLE_FLOW, EXCHANGE_DROPOUT 0.5 at evaluation,
-  where it repeats, and in training);
+  where it repeats, and in training, and the single-agent ego's
+  EXCHANGE_MODAR False, which appends no MoDAR row);
 * the loader: the same seed gives the same batches with 0 and 2 workers;
 * the exchange generator writes files for both splits;
 * what is not ported raises, naming its ROADMAP item.
@@ -234,6 +235,7 @@ LEVERS = {
     "oracle_flow": ("boxflow", False, {"EXCHANGE_ORACLE_FLOW": True}),
     "dropout_eval": ("boxflow", False, {"EXCHANGE_DROPOUT": 0.5}),
     "dropout_train": ("boxflow", True, {"EXCHANGE_DROPOUT": 0.5}),
+    "no_modar": ("boxflow", True, {"EXCHANGE_MODAR": False}),  # the single-agent ego
 }
 
 
@@ -247,8 +249,11 @@ def test_ego_exchange_levers_equal_jax(lever, exchange_dirs):
     titems = [tds[i] for i in range(len(tds))]
     for a, b in zip(jitems, titems):
         assert_same(a, b)
-    n_modar = sum(v[1] for t in titems for v in t["metadata"]["exchange"].values())
-    assert n_modar > 0, "no MoDAR row reached the ego"
+    n_modar = sum(v[1] for t in titems for v in t["metadata"].get("exchange", {}).values())
+    if over.get("EXCHANGE_MODAR", True):
+        assert n_modar > 0, "no MoDAR row reached the ego"
+    else:
+        assert n_modar == 0
     assert tds._exchange_misses == jds._exchange_misses
     if lever == "dropout_eval":  # the lossy broadcast repeats at evaluation
         tds.rng = np.random.RandomState(7)

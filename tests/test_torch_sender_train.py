@@ -55,10 +55,11 @@ from pcp_tpu_torch.models import build_network as build_torch
 from pcp_tpu_torch.models.bev_layers import hunter_toolbox as ttb
 from pcp_tpu_torch.models.bev_layers.hunter_jr import HunterObjectHead
 from pcp_tpu_torch.models.loss_fnc import lovasz as tlv
-from pcp_tpu_torch.train.train_state import biases_before_bn, init_weights
+from pcp_tpu_torch.train.train_state import init_weights
 from pcp_tpu_torch.utils.jax_weights import put_mlp, state_dict_from_jax_variables, tensors_from_jax_params
 from test_hunter_jr import make_sweep_batch
-from torch_port_helpers import CAR_CFG, CAR_FEATURES, info_kwargs, randomize_batch_stats
+from torch_port_helpers import (CAR_CFG, CAR_FEATURES, exact_zero_leaves, info_kwargs,
+                                randomize_batch_stats)
 
 CORRECTOR_KEYS = {"corrector_loss", "l_points_cls", "l_points_embed", "l_fg_offset",
                   "l_locals_transl", "l_locals_rot", "l_recon", "l_dtl_locals_feat"}
@@ -430,16 +431,6 @@ def test_loss_and_tb_match(car_step):
 GROUPS = ("vfe", "backbone_2d", "corrector", "dense_head")
 
 
-def _exact_zero_leaves(model):
-    """Leaves whose gradient is 0 in exact arithmetic here: conv biases in
-    front of a BN, and the last BN bias of the object head's shape encoder
-    (while every occupied local pools a positive value in every channel, as
-    in these batches, the bias moves all of them alike, and the local
-    encoder's masked BN takes that out)."""
-    enc = model.corrector.object_head.points_shape_encoder
-    return biases_before_bn(model) | {f"corrector.object_head.points_shape_encoder.{len(enc) - 2}.bias"}
-
-
 def _hold_grads(got, want, names, zero, top, tol, what):
     for name in names:
         g, w = got[name], want[name]
@@ -456,7 +447,7 @@ def test_parameter_gradients_match(car_step, group):
     """Every leaf of the whole model against JAX within 1e-2 of its largest
     |g|."""
     want, got = car_step["jax"]["grads"], car_step["torch"]["grads"]
-    zero = _exact_zero_leaves(car_step["torch"]["model"])
+    zero = exact_zero_leaves(car_step["torch"]["model"])
     top = max(v.abs().max().item() for v in want.values())
     names = [n for n in want if n.startswith(group + ".")]
     assert names and set(names) == {n for n in got if n.startswith(group + ".")}
@@ -471,7 +462,7 @@ def test_corrector_gradients_on_the_same_bev(car_step):
     1e-4 of its largest |g|."""
     want, got = car_step["jax"]["grads"], car_step["corrector"]
     names = [n for n in want if n.startswith("corrector.")]
-    zero = _exact_zero_leaves(car_step["torch"]["model"])
+    zero = exact_zero_leaves(car_step["torch"]["model"])
     top = max(v.abs().max().item() for v in want.values())
     assert set(got) <= set(names)
     missing = set(names) - set(got)  # leaves no loss reaches without foreground

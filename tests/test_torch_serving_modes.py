@@ -294,12 +294,22 @@ def test_bf16_head_within_bound(bf16_outputs, against, branch):
 
 
 def test_bf16_training_raises():
+    """BF16 trains (tests/test_torch_bf16_train.py holds it against JAX);
+    under W_PACK or FOLD_BN, serving forms of trained weights, training
+    still raises."""
+    pts = clustered_points(np.random.default_rng(0), 1, 256)
+    batch = {"points": torch.from_numpy(pts), "points_mask": torch.ones(1, 256, dtype=torch.bool),
+             "gt_boxes": torch.zeros(1, 4, 8)}
     model = build_torch(TorchCfgDict(_bf16_cfg()), num_class=1,
                         dataset_info=TorchInfo(**info_kwargs()), device="cpu").train()
-    pts = clustered_points(np.random.default_rng(0), 1, 256)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        model({"points": torch.from_numpy(pts), "points_mask": torch.ones(1, 256, dtype=torch.bool),
-               "gt_boxes": torch.zeros(1, 4, 8)})
+    assert torch.isfinite(model(batch)["loss"])
+    for mode in ("W_PACK", "FOLD_BN"):
+        cfg = _bf16_cfg()
+        cfg["BACKBONE_2D"][mode] = True
+        model = build_torch(TorchCfgDict(cfg), num_class=1, dataset_info=TorchInfo(**info_kwargs()),
+                            device="cpu").train()
+        with pytest.raises(RuntimeError, match="inference-only"):
+            model(batch)
 
 
 @pytest.mark.parametrize("flags", [["--fold-bn"], ["--wpack"], ["--fold-bn", "--wpack", "--bf16"],

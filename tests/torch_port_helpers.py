@@ -24,6 +24,7 @@ from pcp_tpu.models.detectors.detector_template import DatasetInfo as JaxInfo
 from pcp_tpu_torch.config import CfgDict as TorchCfgDict
 from pcp_tpu_torch.models import DatasetInfo as TorchInfo
 from pcp_tpu_torch.models import build_network as build_torch
+from pcp_tpu_torch.train.train_state import biases_before_bn
 from pcp_tpu_torch.utils.jax_weights import state_dict_from_jax_variables
 
 GRID = 128
@@ -161,3 +162,20 @@ def jax_batch(pts, mask, gt):
 def torch_batch(pts, mask, gt):
     return {"points": torch.from_numpy(pts), "points_mask": torch.from_numpy(mask),
             "gt_boxes": torch.from_numpy(gt)}
+
+
+def exact_zero_leaves(model):
+    """Names of the leaves whose gradient is 0 in exact arithmetic: the conv
+    biases that a BN follows (``train_state.biases_before_bn``; DiscoNet's
+    pixel weightor has two outside an ``nn.Sequential``) and a sender's last BN
+    bias of the object head's shape encoder (every local pools a positive
+    value in every channel, so that bias moves them all alike, and the next
+    masked BN takes it out). Rounding alone decides their gradient's sign,
+    so checks hold them apart."""
+    names = biases_before_bn(model)
+    if hasattr(model, "v2x_mid_fusion"):
+        names |= {f"v2x_mid_fusion.pixel_weightor.conv1_{i}.bias" for i in (1, 2)}
+    if hasattr(model, "corrector"):
+        enc = model.corrector.object_head.points_shape_encoder
+        names.add(f"corrector.object_head.points_shape_encoder.{len(enc) - 2}.bias")
+    return names
