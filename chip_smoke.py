@@ -171,12 +171,38 @@ exits non-zero:
    statistics float32; each step's time, its forward+loss / backward /
    optimizer split on the card and on the host, and peak memory.
 
+a11. (after phase 9) the anchor-head PointPillar car
+   (``v2x_pointpillar_anchor_car.yaml``) and SECOND's car, RSU and ego
+   (``v2x_second_{car,rsu,ego}.yaml``) at full width on the card, weights
+   from ``--seed`` (the senders' seg bias balanced as in phase 6, the anchor
+   head's cls bias so that a fifth of the anchors pass SCORE_THRESH), b4
+   x 65536 points (the ego 32768). For each: one deterministic forward with
+   every count at 0 (the anchor car exactly one B1 launch, SECOND none; the
+   voxels kept and each level's active sites printed); B1 exact on the
+   anchor car's inputs, timed beside its bound; b1 card against CPU (the
+   senders as phase 6 holds them, the others: voxel and output ids equal,
+   the BEV, the head, the boxes under the margin rule); the forward's time,
+   stages (vfe, backbone_3d, map_to_bev, backbone_2d, corrector, the head's
+   convs, post-processing) and peak memory; A11_TRAIN_STEPS steps on one
+   batch (launches as in the forward, every loss finite, the last under the
+   first), the step's time, split, stages and peak memory, and a b1 step
+   against the CPU held as phase 5 holds the ego's (the RSU, whose model is
+   the car's, leaves out both CPU checks). Then the CLIs on the SMOKE world
+   in ``build/a11``, loading in the main process: the anchor car, the SECOND
+   car and the SECOND RSU trained 2 epochs, both SECOND senders broadcast
+   into ``exchange_database_second``, the SECOND ego trained on it and
+   evaluated (its items must carry MoDAR rows from there); each stage's
+   seconds and launches.
+
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
 ``"sender_train"``, the trained ego's under ``"trained_ego"``, the bench's
 profile under ``"bench_profile"``, phase 11's under ``"serving"``, phase
-12's under ``"dp"``, phase 10's under ``"disco"`` and phase 9's under
-``"pipeline"``; each kernel's launches in each pipeline stage under
+12's under ``"dp"``, phase 10's under ``"disco"``, phase 9's under
+``"pipeline"`` and phase a11's under ``"a11"``; each kernel's launches in
+each a11 model's forward, train step and CLI stage under
+``"launches_per_a11_forward"``, ``"launches_per_a11_train_step"`` and
+``"launches_in_a11_cli"``; in each pipeline stage under
 ``"launches_in_pipeline"``, in a DiscoNet eval forward and train step under
 ``"launches_per_disco_eval_forward"`` and ``"..._train_step"``, in a
 serving mode's forward under ``"launches_per_serving_forward"``, in a
@@ -514,16 +540,20 @@ def phase_kernels(seed):
 
 
 def seeded_state_dict(model, seed):
-    """Weights for ``model`` from a numpy generator: conv and linear weights
-    normal with std 1/sqrt(fan-in), BN affine and running statistics random,
-    conv biases 0 except the hm output's -2.19, so that scores straddle
-    SCORE_THRESH and NMS has candidates."""
+    """Weights for ``model`` from a numpy generator: conv, sparse conv and
+    linear weights normal with std 1/sqrt(fan-in), BN affine and running
+    statistics random, conv biases 0 except the hm output's -2.19, so that
+    scores straddle SCORE_THRESH and NMS has candidates."""
     from torch import nn
+
+    from pcp_tpu_torch.models.backbones_3d.spconv_backbone import SparseConv3d
 
     rng = np.random.default_rng(seed)
     sd = {}
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, SparseConv3d):  # (Cout, kz, ky, kx, Cin): fan-in K * Cin
+            sd[f"{name}.weight"] = rng.normal(0, m.weight[0].numel() ** -0.5, m.weight.shape)
+        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             # a transposed conv with kernel == stride feeds each output from
             # one tap of every input channel
@@ -843,7 +873,7 @@ def card_and_cpu_steps(model, cfg_path, cfg, state_dict, one):
     return gpu, cpu, cpu_half, cpu_s
 
 
-def hold_to_cpu_spread(phase, name, gpu, cpu, cpu_half, zero_names, cpu_s):
+def hold_to_cpu_spread(phase, name, gpu, cpu, cpu_half, zero_names, cpu_s, grad_rtol=GRAD_RTOL):
     """The card's step against the CPU's: loss and tb (relative), gradients
     after the clip by group (``grad_errors``), running statistics by group
     and, for a sender, the training forward's point probabilities and flow
@@ -874,10 +904,11 @@ def hold_to_cpu_spread(phase, name, gpu, cpu, cpu_half, zero_names, cpu_s):
             limits[f"points_{key}"] = (point_err[key], max(atol, SPREAD_FACTOR * point_spread[key]))
     for group, d in errs.items():
         for key, (err, _) in d.items():
-            base = GRAD_ZERO_ATOL if key == "zero_grad" else GRAD_RTOL
+            base = GRAD_ZERO_ATOL if key == "zero_grad" else grad_rtol
             limits[f"{group} {key}"] = (err, max(base, SPREAD_FACTOR * spread[group][key][0]))
-        limits[f"{group} running statistics"] = (
-            stats_err[group], max(STATS_ATOL, SPREAD_FACTOR * stats_spread[group]))
+        if group in stats_err:  # a group without BN (the anchor head) has no statistics
+            limits[f"{group} running statistics"] = (
+                stats_err[group], max(STATS_ATOL, SPREAD_FACTOR * stats_spread[group]))
     loose = sorted(k for k, (_, lim) in limits.items() if k.endswith(" rel") and lim >= GRAD_LIMIT_CAP)
     log(phase, f"{name}b1 step card vs CPU ({cpu_s:.1f} s on the CPU): loss {gpu['loss']} vs "
                f"{cpu['loss']}; gradients after the clip, by group, largest error over the leaf's "
@@ -1175,7 +1206,7 @@ def pin_decisions(model, ref):
     c.move_points = move_points
 
 
-def _sender_card_vs_cpu(name, cfg_path, sd, model, batch, pp, post_max):
+def _sender_card_vs_cpu(name, cfg_path, sd, model, batch, pp, post_max, phase="exchange"):
     """b1 on the card against b1 on the CPU, the card's forward under
     deterministic algorithms. A corrector decision (move a point or not, the
     pixel of a moved point) may fall either way where the two devices'
@@ -1234,7 +1265,7 @@ def _sender_card_vs_cpu(name, cfg_path, sd, model, batch, pp, post_max):
         {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
         {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()}, heat,
         top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH), post_max=post_max)
-    log("exchange", f"{name}: b1 card vs CPU ({cpu_s:.1f} s on the CPU), max_abs_err {err}; "
+    log(phase, f"{name}: b1 card vs CPU ({cpu_s:.1f} s on the CPU), max_abs_err {err}; "
                     f"tolerances: vfe_bev and corrected_bev atol {SENDER_BEV_TOL[0]} rtol "
                     f"{SENDER_BEV_TOL[1]}, points_cls_prob atol {CLS_PROB_ATOL}, points_flow3d "
                     f"atol {FLOW_ATOL} (valid rows), head atol {HEAD_ATOL}; every corrector "
@@ -2947,6 +2978,385 @@ def phase_disco(seed, boxflow_bytes=None):
             {k: v // DISCO_STEPS for k, v in train_counts.items()}, record)
 
 
+# ------------------------------------------------------------ a11. anchor car and SECOND
+
+CFGS = REPO / "tools" / "cfgs" / "v2x_sim_models"
+# (name, config, points a cloud, the kernel launches its forward and step
+# must show: B1 once for the pillar VFE, nothing for the sparse voxel path,
+# whether the card is held against the CPU). The SECOND RSU's MODEL is the
+# SECOND car's (its config differs in the dataset and the learning rate),
+# so its card-vs-CPU checks, 30 s of CPU, are the car's and are left out
+A11_MODELS = (("anchor_car", CFGS / "v2x_pointpillar_anchor_car.yaml", SENDER_N, 1, True),
+              ("second_car", CFGS / "v2x_second_car.yaml", SENDER_N, 0, True),
+              ("second_rsu", CFGS / "v2x_second_rsu.yaml", SENDER_N, 0, False),
+              ("second_ego", CFGS / "v2x_second_ego.yaml", N, 0, True))
+A11_TRAIN_STEPS = 4  # the loss curve: steps on one batch, the last under the first
+# the share of the anchor car's anchors that the seeded weights score above
+# SCORE_THRESH (``balance_anchor_bias``): 32768 anchors a cloud, so about
+# 6500, more than NMS_PRE_MAXSIZE 4096
+A11_ANCHOR_SHARE = 0.2
+A11_BEV_TOL = (1e-4, 1e-4)  # card against CPU, the BEV before the 2D backbone (atol, rtol)
+# card against CPU, one b1 step: a gradient group's largest error of a leaf
+# over that leaf's largest |g| (else SPREAD_FACTOR x the CPU's own spread,
+# as in phase 5). cuDNN's float32 convolutions of the SECOND 2D backbone
+# (256 channels in, 128 x 128, about 350 ms a b4 forward) round coarser
+# than the CPU's, beyond the CPU's own spread between thread counts; first
+# readings on an H100 80GB HBM3 at 700 W: the ego's backbone_2d 7.9e-2
+# (the CPU's spread 1.3e-2), backbone_3d 2.8e-2 (6.7e-3), the car's head
+# 3.5e-4 (4.1e-5). A lost or doubled leaf reads 1
+A11_GRAD_RTOL = 0.1
+
+
+def a11_stages(model):
+    """The eval forward cut at module boundaries: vfe, backbone_3d,
+    map_to_bev, backbone_2d, corrector, the head's convs, then the decode
+    and NMS (post-processing)."""
+    from pcp_tpu_torch.models.detectors.pointpillar import generic_post_processing
+
+    names = [n for n in ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "corrector")
+             if hasattr(model, n)]
+    stages = [(n, getattr(model, n)) for n in names]
+    head = model.dense_head
+    if hasattr(head, "heads_list"):  # CenterHead: the convs, then decode and NMS
+        stages += [("dense_head", lambda d: dict(d, head_preds=[h(head.shared_conv(
+                       d["spatial_features_2d"])) for h in head.heads_list])),
+                   ("post_processing", lambda d: dict(d, final_box_dicts=head.generate_predicted_boxes(
+                       d["head_preds"])))]
+    else:  # the anchor head decodes its anchors; the detector's NMS follows
+        stages += [("dense_head", head),
+                   ("post_processing", lambda d: dict(d, final_box_dicts=generic_post_processing(
+                       model.model_cfg, d)))]
+    return stages
+
+
+def a11_train_stages(model):
+    """The training forward cut at module boundaries, then the loss."""
+    names = [n for n in ("vfe", "backbone_3d", "map_to_bev", "backbone_2d", "corrector",
+                         "dense_head") if hasattr(model, n)]
+    head = model.dense_head
+
+    def loss(d):
+        total = head.get_loss(d["head_preds"], d["head_targets"])[0]
+        return dict(d, loss=total + d["corrector_loss"] if "corrector_loss" in d else total)
+
+    return [(n, getattr(model, n)) for n in names] + [("loss", loss)]
+
+
+def _a11_card_vs_cpu(name, cfg_path, sd, model, host, cfg):
+    """b1 eval on the card (deterministic) against the CPU for a model
+    without a corrector: voxel and output ids equal (SECOND), the BEV before
+    the 2D backbone within A11_BEV_TOL, the head's outputs within HEAD_ATOL,
+    the surviving boxes under the margin rule."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.utils.box_match import match_surviving_boxes
+
+    _, _, cpu_model = build(cfg_path, device="cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    one = {k: v[:1].clone() for k, v in host.items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.inference_mode():
+        gpu = model(_on(one, "cuda"))
+        torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu = cpu_model(one)
+    cpu_s = time.perf_counter() - t0
+    err = {}
+    if "voxel_ids" in cpu:
+        for key, got, want in (("voxel_ids", gpu["voxel_ids"], cpu["voxel_ids"]),
+                               ("encoded_ids", gpu["encoded_spconv_tensor"][0],
+                                cpu["encoded_spconv_tensor"][0])):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"a11 {name}: {key} differ between card and CPU")
+    got, want = gpu["spatial_features"].cpu(), cpu["spatial_features"]
+    err["bev"] = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, atol=A11_BEV_TOL[0], rtol=A11_BEV_TOL[1])
+    if "batch_cls_preds" in cpu:  # the anchor head: its decoded anchors, scored by class max
+        pp = cfg.MODEL.POST_PROCESSING
+        pairs = {k: (gpu[f"batch_{k}_preds"], cpu[f"batch_{k}_preds"]) for k in ("cls", "box")}
+        logits = cpu["batch_cls_preds"][0].double().max(-1)[0]
+        top_k = int(pp.NMS_CONFIG.NMS_PRE_MAXSIZE)
+    else:
+        pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+        pairs = {k: (gpu["head_preds"][0][k], v) for k, v in cpu["head_preds"][0].items()}
+        logits = cpu["head_preds"][0]["hm"][0].double().reshape(-1)
+        top_k = int(pp.MAX_OBJ_PER_SAMPLE)
+    for key, (g, w) in pairs.items():
+        err[f"head.{key}"] = (g.cpu() - w).abs().max().item()
+        torch.testing.assert_close(g.cpu(), w, atol=HEAD_ATOL, rtol=A11_BEV_TOL[1])
+    matched = match_surviving_boxes(
+        {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
+        {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()},
+        torch.sigmoid(logits).numpy(), top_k=top_k, score_thresh=float(pp.SCORE_THRESH),
+        post_max=int(pp.NMS_CONFIG.NMS_POST_MAXSIZE))
+    log("a11", f"{name}: b1 card vs CPU ({cpu_s:.1f} s on the CPU), max_abs_err {err}; tolerances: "
+               f"bev atol {A11_BEV_TOL[0]} rtol {A11_BEV_TOL[1]}, head atol {HEAD_ATOL} rtol "
+               f"{A11_BEV_TOL[1]}"
+               + ("; voxel and output ids equal" if "voxel_ids" in cpu else "")
+               + f"; {matched} surviving boxes matched under the margin rule")
+    return dict(err, boxes_matched=matched, cpu_s=cpu_s)
+
+
+def balance_anchor_bias(model, sd, batch, thresh):
+    """Shift the anchor head's cls bias, in ``sd`` and in ``model``, so that
+    A11_ANCHOR_SHARE of the batch's anchors score above ``thresh``: seeded
+    weights otherwise put every anchor on one side of SCORE_THRESH."""
+    with torch.inference_mode():
+        logits = model(batch)["batch_cls_preds"].max(-1)[0].double().reshape(-1)
+    cut = torch.quantile(logits.cpu(), 1 - A11_ANCHOR_SHARE)
+    shift = float(np.log(thresh / (1 - thresh))) - cut.item()
+    sd["dense_head.conv_cls.bias"] = sd["dense_head.conv_cls.bias"] + shift
+    model.load_state_dict(sd, strict=True)
+
+
+def run_a11_model(name, cfg_path, n, b1_launches, against_cpu, seed):
+    """One model of phase a11 at full width on the card. Returns (its record,
+    launches of each kernel in one forward, in one train step)."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import biases_before_bn, create_train_state, make_train_step
+
+    cfg, info, model = build(cfg_path, device="cuda")
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    rng = np.random.default_rng(seed + 20)
+    sender = hasattr(model, "corrector")
+    if sender:
+        host = sender_points(rng, b, n)
+    else:
+        pts = realistic_points(rng, b, n, info.num_point_features)
+        host = {"points": torch.from_numpy(pts), "points_mask": torch.ones((b, n), dtype=torch.bool)}
+    batch = _on(host, "cuda")
+    sd = seeded_state_dict(model, seed)
+    model.load_state_dict(sd, strict=True)
+    if sender:
+        balance_seg_bias(model, sd, batch)
+    if hasattr(model.dense_head, "conv_cls"):
+        balance_anchor_bias(model, sd, batch, float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH))
+    want = {k: b1_launches * int(k == "bev_scatter_max") for k in bs.launches}
+
+    # the counted forward, deterministic, the scatter's inputs kept
+    seen = []
+    if hasattr(model.vfe, "scatter_max"):
+        scatter = model.vfe.scatter_max
+        model.vfe.scatter_max = lambda *args: seen.append(args) or scatter(*args)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(batch)
+        torch.cuda.synchronize()
+        counts = dict(bs.launches)
+    torch.use_deterministic_algorithms(False)
+    if seen:
+        model.vfe.scatter_max = scatter
+    fbd = out["final_box_dicts"]
+    detail = ""
+    if "voxel_ids" in out:
+        dims = out["sparse_dims"]
+        voxels = (out["voxel_ids"] < dims[0] * dims[1] * dims[2]).sum(1).tolist()
+        sites = {lv: (ids < d[0] * d[1] * d[2]).sum(1).tolist()
+                 for lv, (ids, _, d, _) in out["multi_scale_3d_features"].items()}
+        detail = (f"; voxels kept per cloud {voxels} of a budget {out['voxel_ids'].shape[1]}, "
+                  f"active sites per level {sites}, BEV {tuple(out['spatial_features'].shape)}")
+    log("a11", f"{name}: one b{b} x {n} forward, full width, {info.num_point_features}-feature "
+               f"points: kernel launches {counts}; valid boxes per cloud "
+               f"{fbd['pred_valid'].sum(1).tolist()}" + detail)
+    if counts != want:
+        raise AssertionError(f"a11 {name}: expected launches {want}, got {counts}")
+    if not torch.isfinite(fbd["pred_boxes"]).all() or not fbd["pred_valid"].any(1).all():
+        raise AssertionError(f"a11 {name}: boxes not finite or a cloud without a box")
+    record = {"config": str(Path(cfg_path).relative_to(REPO)), "batch": b, "points": n,
+              "forward_launches": counts}
+    if seen:
+        (feats, pids, h, w), = seen
+        record["bev_scatter_max"] = b1_on_inputs("a11", f"{name}: the forward's", feats, pids, h, w)
+        del seen, feats, pids
+    pp = cfg.MODEL.DENSE_HEAD.get("POST_PROCESSING") or cfg.MODEL.POST_PROCESSING
+    if against_cpu:
+        record["card_vs_cpu"] = (
+            _sender_card_vs_cpu(name, cfg_path, sd, model, host, pp,
+                                int(pp.NMS_CONFIG.NMS_POST_MAXSIZE), phase="a11") if sender
+            else _a11_card_vs_cpu(name, cfg_path, sd, model, host, cfg))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        record["forward_ms"] = cuda_ms(lambda: model(batch), warmup=2, iters=5)
+        record["forward_peak_bytes"] = torch.cuda.max_memory_allocated()
+        record["forward_stages_ms"] = stage_ms(a11_stages(model), batch, iters=3)
+    log("a11", f"{name}: forward b{b} x {n}, seeded weights, TF32 off: median "
+               f"{record['forward_ms']:.6f} ms over 5 after 2 warm-ups, "
+               f"{b / record['forward_ms'] * 1e3:.3f} clouds/s; peak memory allocated "
+               f"{record['forward_peak_bytes']} bytes; stages: "
+               + ", ".join(f"{k} {v:.6f}" for k, v in record["forward_stages_ms"].items())
+               + " (stages: median ms of 3)")
+
+    # training: the loss curve on one batch, every launch counted
+    if sender:
+        host_train = sender_train_batch(np.random.default_rng(seed + 21), b, n, info)
+    else:
+        host_train = train_batch(np.random.default_rng(seed + 21), b, n, info)
+    train = _on(host_train, "cuda")
+    # the one-cycle schedule of phase 5's 50-step overfit: its first steps
+    # run at the warm-up's low rates (over 4 steps the anchor car's loss rose
+    # at the peak rate)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
+                                   total_epochs=1)
+    state = create_train_state(model, optimizer, seed)
+    step = make_train_step(model, optimizer)
+    bs.reset_launches()
+    curve = [step(train) for _ in range(A11_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_counts = dict(bs.launches)
+    losses = [loss.item() for loss, _ in curve]
+    tbs = [{k: v.item() for k, v in tb.items()} for _, tb in curve]
+    log("a11", f"{name}: loss curve " + " ".join(f"{v:.6f}" for v in losses) + f"; tb first -> "
+               "last: " + ", ".join(f"{k} {tbs[0][k]:.6f} -> {tbs[-1][k]:.6f}" for k in tbs[0])
+               + f"; launches {train_counts} in {A11_TRAIN_STEPS} steps, step count {state.step}")
+    bad = sorted({k for tb in tbs for k, v in tb.items() if not np.isfinite(v)})
+    if bad or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"a11 {name}: losses {losses}, tb not finite {bad}")
+    if train_counts != {k: A11_TRAIN_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"a11 {name}: expected {want} launches a step, got {train_counts}")
+    step_ms, split, peak = time_train_steps(model, optimizer, train, iters=3, warmup=1)
+    stages = stage_ms(a11_train_stages(model), train, iters=3)
+    record.update(losses=losses, train_launches_per_step={k: v // A11_TRAIN_STEPS
+                                                          for k, v in train_counts.items()},
+                  step_ms=step_ms, samples_per_s=b / step_ms * 1e3,
+                  **{f"{k}_ms": v for k, v in split.items()}, peak_bytes=peak,
+                  train_stages_ms=stages)
+    log("a11", f"{name}: train step b{b} x {n}, TF32 off: median {step_ms:.6f} ms over 3 after 1 "
+               f"warm-up (host clock, synchronized), {b / step_ms * 1e3:.3f} samples/s; split "
+               "(median ms, CUDA events): " + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+               + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB); training forward "
+               "stages (median ms of 3): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+
+    if against_cpu:  # one b1 step from the seeded weights, card against CPU
+        one = {k: v[:1] for k, v in host_train.items()}
+        gpu, cpu, cpu_half, cpu_s = card_and_cpu_steps(model, cfg_path, cfg, sd, one)
+        limits, loose = hold_to_cpu_spread("a11", f"{name}: ", gpu, cpu, cpu_half,
+                                           biases_before_bn(model), cpu_s, grad_rtol=A11_GRAD_RTOL)
+        record["train_card_vs_cpu"] = {"limits": limits, "loosely_held": loose, "cpu_s": cpu_s}
+    launches = (counts, record["train_launches_per_step"])
+    del model, optimizer, state, batch, train, out
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+# the CLI stages of phase a11 on the SMOKE world, in the main process
+A11_EXCHANGE = "exchange_database_second"
+
+
+def _a11_stages(root):
+    """(name, kind, CLI main, argv) of phase a11's CLI stages: the anchor car,
+    the SECOND car and the SECOND RSU trained PIPELINE_EPOCHS epochs, both
+    SECOND senders broadcast into ``exchange_database_second`` (their
+    default database, under a data root in ``root``), the SECOND ego trained
+    on it and evaluated."""
+    from pcp_tpu_torch.tools import test as test_cli
+    from pcp_tpu_torch.tools import train as train_cli
+    from pcp_tpu_torch.workspace import v2x_gen_exchange_database as genx
+
+    data = ["USE_SYNTHETIC_DATA", "True", "MAX_POINTS_PER_SAMPLE", str(PIPELINE_NPTS),
+            "SYNTHETIC", PIPELINE_SYN, "MINI_TRAINVAL_STRIDE", "1", "DATA_PATH", str(root / "data")]
+    common = [f"DATA_CONFIG.{v}" if i % 2 == 0 else v for i, v in enumerate(data)]
+    base = ["--batch_size", "4", "--device", "cuda", "--output_root", str(root), "--workers", "0"]
+
+    def ckpt(cfg):
+        return str(root / "cfgs" / "v2x_sim_models" / cfg / "smoke" / "ckpt"
+                   / f"checkpoint_epoch_{PIPELINE_EPOCHS}.pth")
+
+    def train(name, cfg, ratio):
+        return (name, "train", train_cli.main,
+                ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, "--extra_tag", "smoke",
+                 "--epochs", str(PIPELINE_EPOCHS), "--num_epochs_to_eval", "0", "--set", *common,
+                 "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", str(ratio), "OPTIMIZATION.LR", "0.003"])
+
+    def gen(agent):
+        return (f"gen_exchange_{agent}", "gen", genx.main,
+                ["--agent", agent, "--ckpt", ckpt(f"v2x_{agent}"), "--synthetic", "--device",
+                 "cuda", "--workers", "0", "--set", *data])
+
+    ego = "v2x_second_ego"
+    return [train("train_anchor_car", "v2x_pointpillar_anchor_car", 4),
+            train("train_second_car", "v2x_second_car", 4),
+            train("train_second_rsu", "v2x_second_rsu", 1),
+            gen("second_car"), gen("second_rsu"),
+            train("train_second_ego", ego, 1),
+            ("eval_second_ego", "eval", test_cli.main,
+             ["--cfg_file", PIPELINE_CFGS.format(ego), *base, "--extra_tag", "smoke", "--ckpt",
+              ckpt(ego), "--eval_tag", "smoke", "--set", *common,
+              "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", "1"])]
+
+
+def a11_cli(root):
+    """Phase a11's CLI stages on the card: each stage's seconds and launches
+    (B1 only for the anchor car, nothing for SECOND), the losses finite, the
+    exchange written into ``exchange_database_second`` and read back as the
+    SECOND ego's MoDAR rows, the evaluation's metrics finite. Returns the
+    record."""
+    import shutil
+
+    from pcp_tpu_torch.ops import bev_scatter as bs
+
+    shutil.rmtree(root, ignore_errors=True)
+    record = {}
+    for name, kind, main_fn, argv in _a11_stages(root):
+        bs.reset_launches()
+        t0 = time.perf_counter()
+        out = main_fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(bs.launches)
+        rec = {"seconds": seconds, "launches": launches}
+        b1 = launches["bev_scatter_max"] if "anchor" in name else 0
+        if launches != {k: b1 * int(k == "bev_scatter_max") for k in launches} or (
+                "anchor" in name and not b1):
+            raise AssertionError(f"a11 {name}: kernel launches {launches}")
+        if kind == "train":
+            rec.update(steps=out["steps"], step_ms=out["step_ms_median"], losses=out["losses"])
+            if not out["steps"] or not np.isfinite(out["losses"]).all():
+                raise AssertionError(f"a11 {name}: losses {out['losses']}")
+            detail = (f"{out['steps']} steps, median step {out['step_ms_median']:.6f} ms, losses "
+                      + " ".join(f"{v:.6f}" for v in out["losses"]))
+        elif kind == "gen":
+            files = len(list(root.glob(f"data/*/{A11_EXCHANGE}/*.npz")))
+            rec.update(clouds=out, files=files)
+            if not all(out.values()) or not files:
+                raise AssertionError(f"a11 {name}: wrote {out} clouds, {files} files")
+            detail = f"clouds broadcast {out}; {files} files in {A11_EXCHANGE}"
+        else:
+            keys = ("mAP", "NDS", "recall/rcnn_0.3", "recall/rcnn_0.5", "recall/rcnn_0.7")
+            rec.update({k: float(out[k]) for k in keys})
+            if not all(np.isfinite(rec[k]) for k in keys):
+                raise AssertionError(f"a11 {name}: results not finite {rec}")
+            cfg, items = eval_items(argv)
+            if cfg.DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY != A11_EXCHANGE:
+                raise AssertionError(f"a11 {name}: reads {cfg.DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY}")
+            rows = sum(v[1] for item in items for v in item["metadata"]["exchange"].values())
+            if not rows:
+                raise AssertionError(f"a11 {name}: no MoDAR row read from {A11_EXCHANGE}")
+            rec["modar_rows"] = rows
+            detail = ", ".join(f"{k} {rec[k]:.6f}" for k in keys) + (
+                f"; {rows} MoDAR rows read from {A11_EXCHANGE} over {len(items)} items")
+        record[name] = rec
+        log("a11", f"{name}: {seconds:.3f} s; {detail}; kernel launches {launches}")
+    return record
+
+
+def phase_a11(seed):
+    """Phase a11: the anchor car and SECOND's car, RSU and ego at full width
+    on the card, then their CLI stages. Returns (launches of each kernel in
+    each model's forward and train step, the record)."""
+    record, forward, step = {}, {}, {}
+    for name, cfg_path, n, b1, against_cpu in A11_MODELS:
+        record[name], (forward[name], step[name]) = run_a11_model(name, cfg_path, n, b1,
+                                                                  against_cpu, seed)
+    record["cli"] = a11_cli(REPO / "build" / "a11")
+    return forward, step, record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3009,13 +3419,20 @@ def main(argv=None):
     for kernel, record in records.items():
         record["launches_in_pipeline"] = {name: rec["launches"][kernel]
                                           for name, rec in pipeline.items() if "launches" in rec}
+    a11_forward, a11_step, a11 = phase_a11(args.seed)
+    lap("a11")
+    for kernel, record in records.items():
+        record["launches_per_a11_forward"] = {m: c[kernel] for m, c in a11_forward.items()}
+        record["launches_per_a11_train_step"] = {m: c[kernel] for m, c in a11_step.items()}
+        record["launches_in_a11_cli"] = {name: rec["launches"][kernel]
+                                         for name, rec in a11["cli"].items()}
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
     print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
                       "sender_train": sender_train, "trained_ego": trained,
                       "bench_profile": bench["profile"], "serving": serving, "dp": dp,
                       "bf16_train": bf16,
-                      "disco": disco, "pipeline": pipeline, "phase_seconds": seconds}))
+                      "disco": disco, "pipeline": pipeline, "a11": a11, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

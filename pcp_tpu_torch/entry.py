@@ -11,7 +11,11 @@ HunterJr corrector, 7-feature points) also return ``points_cls_prob`` and
 broadcasts through ``exchange/database.py``. DiscoNet (``CFG_DISCO``: mid
 fusion with frozen per-agent BEV makers) takes 6-feature merged clouds
 whose last column is the agent, with ``se3_from_ego_arr`` (B, 6, 4, 4) and
-``agent_present`` (B, 6). The model is in eval mode with
+``agent_present`` (B, 6). The anchor-head car (``CFG_ANCHOR_CAR``: PointPillar
+with AnchorHeadSingle) takes 7-feature points; SECOND (``CFG_SECOND_CAR``,
+``CFG_SECOND_RSU``: the sparse voxel backbone with HunterJr, 7-feature
+points; ``CFG_SECOND_EGO``: 13-feature points with MoDAR rows) returns what
+the pillar models of the same role return. The model is in eval mode with
 initial weights; load trained ones with ``model.load_state_dict`` (see
 ``utils/jax_weights.py``).
 
@@ -34,6 +38,11 @@ CFG_EGO = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_ego.yaml"
 CFG_CAR = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_car.yaml"
 CFG_RSU = "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_rsu.yaml"
 CFG_DISCO = "tools/cfgs/v2x_sim_models/v2x_pointpillar_disco.yaml"
+# the anchor-head PointPillar car, and SECOND's car, RSU and ego
+CFG_ANCHOR_CAR = "tools/cfgs/v2x_sim_models/v2x_pointpillar_anchor_car.yaml"
+CFG_SECOND_CAR = "tools/cfgs/v2x_sim_models/v2x_second_car.yaml"
+CFG_SECOND_RSU = "tools/cfgs/v2x_sim_models/v2x_second_rsu.yaml"
+CFG_SECOND_EGO = "tools/cfgs/v2x_sim_models/v2x_second_ego.yaml"
 
 
 def build(cfg_path=CFG_EGO, device="cuda", pre_reduce=None, set_cfgs=None):

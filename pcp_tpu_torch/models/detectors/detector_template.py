@@ -5,9 +5,14 @@ config names the sub-modules; each is registered under its pcdet name so
 that the state dict carries pcdet's keys, and the forward threads a batch
 dict through them in the JAX package's order: DiscoNet's frozen BEV makers
 (``bev_maker_rsu``, ``bev_maker_car``, ``bev_maker_early``), the
-distillation ``teacher``, ``vfe``, ``map_to_bev``, ``backbone_2d``, the
-``corrector`` (HunterJr or the oracle), DiscoNet's ``v2x_mid_fusion`` and
-the ``dense_head``. Any other MODEL key raises naming its ROADMAP item.
+distillation ``teacher``, ``vfe``, the sparse ``backbone_3d`` (SECOND),
+``map_to_bev``, ``backbone_2d``, the ``corrector`` (HunterJr or the oracle),
+DiscoNet's ``v2x_mid_fusion`` and the ``dense_head``. The width the 2D
+backbone reads is ``MAP_TO_BEV.NUM_BEV_FEATURES`` (for ``HeightCompression``
+the 3D backbone's 128 channels times its 2 z slices). Any other MODEL key
+raises naming its ROADMAP item. ``MODEL.BF16`` and the backbone's
+``FOLD_BN`` and ``W_PACK`` are refused on a model with a sparse 3D backbone
+or an anchor head (ROADMAP A11.1b).
 """
 import dataclasses
 from typing import Tuple
@@ -17,11 +22,15 @@ from torch import nn
 # MODEL keys the port builds, in forward order
 MAKER_KEYS = ("BEV_MAKER_RSU", "BEV_MAKER_CAR", "BEV_MAKER_EARLY")
 MODULE_KEYS = (tuple((key, key.lower()) for key in MAKER_KEYS)
-               + (("TEACHER", "teacher"), ("VFE", "vfe"), ("MAP_TO_BEV", "map_to_bev"),
+               + (("TEACHER", "teacher"), ("VFE", "vfe"), ("BACKBONE_3D", "backbone_3d"),
+                  ("MAP_TO_BEV", "map_to_bev"),
                   ("BACKBONE_2D", "backbone_2d"), ("CORRECTOR", "corrector"),
                   ("V2X_MID_FUSION", "v2x_mid_fusion"), ("DENSE_HEAD", "dense_head")))
 # MODEL keys that configure no module
 PLAIN_KEYS = ("NAME", "POST_PROCESSING", "BF16")
+# MODEL keys of the JAX package's other models and the ROADMAP item that
+# holds each
+NOT_PORTED_KEYS = {"PFE": "A11.6", "POINT_HEAD": "A11.6", "ROI_HEAD": "A11.6"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +72,7 @@ class Detector3DTemplate(nn.Module):
 
     def build_module_list(self):
         from ..backbones_2d import build_backbone_2d
+        from ..backbones_3d import build_backbone_3d
         from ..bev_layers import build_bev_maker, build_corrector, build_teacher, build_v2x_fusion
         from ..dense_heads import build_dense_head
         from ..map_to_bev import build_map_to_bev
@@ -72,9 +82,18 @@ class Detector3DTemplate(nn.Module):
         known = {key for key, _ in MODULE_KEYS} | set(PLAIN_KEYS)
         extra = sorted(k for k, v in cfg.items() if v is not None and k not in known)
         if extra:
-            raise NotImplementedError(f"MODEL keys {extra} are not ported yet (ROADMAP A11)")
+            items = sorted({NOT_PORTED_KEYS.get(k, "A11") for k in extra})
+            raise NotImplementedError(f"MODEL keys {extra} are not ported yet "
+                                      f"(ROADMAP {', '.join(items)})")
         # MODEL.BF16: the backbone's and the head's conv stacks serve in bfloat16
         bf16 = bool(cfg.get("BF16", False))
+        bb_cfg = cfg.get("BACKBONE_2D") or {}
+        modes = [k for k, on in (("MODEL.BF16", bf16), ("FOLD_BN", bb_cfg.get("FOLD_BN", False)),
+                                 ("W_PACK", bb_cfg.get("W_PACK", False))) if on]
+        head = (cfg.get("DENSE_HEAD") or {}).get("NAME")
+        if modes and (cfg.get("BACKBONE_3D") is not None or head == "AnchorHeadSingle"):
+            raise NotImplementedError(f"{', '.join(modes)} on the SECOND and anchor-head models "
+                                      "is not ported yet (ROADMAP A11.1b)")
 
         names = []
         num_bev_features = None
@@ -88,6 +107,10 @@ class Detector3DTemplate(nn.Module):
         if cfg.get("VFE") is not None:
             self.add_module("vfe", build_vfe(cfg["VFE"], info))
             names.append("vfe")
+        if cfg.get("BACKBONE_3D") is not None:
+            self.add_module("backbone_3d", build_backbone_3d(cfg["BACKBONE_3D"],
+                                                             self.vfe.num_point_features))
+            names.append("backbone_3d")
         if cfg.get("MAP_TO_BEV") is not None:
             self.add_module("map_to_bev", build_map_to_bev(cfg["MAP_TO_BEV"], info))
             names.append("map_to_bev")

@@ -57,16 +57,19 @@ def nms_bev(boxes, scores, valid_mask, thresh, post_max_size=83):
     return out, keep_count
 
 
-def class_agnostic_nms(boxes, scores, valid_mask, nms_cfg):
-    """Config-driven NMS (NMS_PRE_MAXSIZE pre-selection, rotated NMS,
-    NMS_POST_MAXSIZE cap) with fixed shapes.
+def class_agnostic_nms(boxes, scores, valid_mask, nms_cfg, score_thresh=None):
+    """Config-driven NMS (a ``score_thresh`` cut where one is given,
+    NMS_PRE_MAXSIZE pre-selection, rotated NMS, NMS_POST_MAXSIZE cap) with
+    fixed shapes.
 
     Returns keep_idx (..., NMS_POST_MAXSIZE) into the input order (-1 pad)
     and keep_count (...).
     """
     nms_type = str(nms_cfg.get("NMS_TYPE", "nms_gpu"))
     if nms_type != "nms_gpu":
-        raise NotImplementedError(f"NMS_TYPE {nms_type!r} is not ported yet (ROADMAP A11)")
+        raise NotImplementedError(f"NMS_TYPE {nms_type!r} is not ported yet (ROADMAP A11.3)")
+    if score_thresh is not None:
+        valid_mask = valid_mask & (scores >= score_thresh)
     pre_max = int(nms_cfg["NMS_PRE_MAXSIZE"])
     post_max = int(nms_cfg["NMS_POST_MAXSIZE"])
     impl_cap = int(nms_cfg.get("NMS_IMPL_MAX_CANDIDATES", 0))

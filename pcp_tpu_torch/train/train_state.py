@@ -25,6 +25,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..models.backbones_3d.spconv_backbone import SparseConv3d
 from ..models.model_utils.norm import MaskedBatchNorm
 from ..parallel.collective import all_reduce_gradients, all_reduce_sum
 
@@ -54,13 +55,16 @@ def _lecun_normal_(weight, fan_in, generator):
 @torch.no_grad()
 def init_weights(model, seed):
     """Initial weights as the JAX package's modules draw them: flax's default
-    ``lecun_normal`` (fan-in) for Dense, Conv and ConvTranspose kernels, zero
-    biases except the hm output's -2.19, BN scale 1 and bias 0, running mean
-    0 and variance 1. Drawn in module order on the CPU from a generator
+    ``lecun_normal`` (fan-in) for Dense, Conv, ConvTranspose and sparse conv
+    kernels, zero biases except the hm output's -2.19, BN scale 1 and bias
+    0, running mean 0 and variance 1; an anchor head's own initial values
+    (``init_head_``). Drawn in module order on the CPU from a generator
     seeded by ``seed``, so a seed gives the same weights on every device."""
     gen = torch.Generator().manual_seed(int(seed))
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, SparseConv3d):  # (Cout, kz, ky, kx, Cin): fan-in K * Cin
+            _lecun_normal_(m.weight, m.weight[0].numel(), gen)
+        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             # flax's fan-in: kernel taps times input channels; a torch
             # ConvTranspose2d weight is (in, out, kh, kw)
@@ -70,6 +74,9 @@ def init_weights(model, seed):
                 m.bias.fill_(-2.19 if name.split(".")[-2:-1] == ["hm"] else 0.0)
         elif isinstance(m, (nn.BatchNorm2d, MaskedBatchNorm)):
             m.reset_parameters()
+    for m in model.modules():  # after the generic draws of the head's convs
+        if hasattr(m, "init_head_"):
+            m.init_head_(gen)
 
 
 def create_train_state(model, optimizer, seed):

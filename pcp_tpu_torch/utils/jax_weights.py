@@ -27,6 +27,13 @@ by leaf against the JAX package's.
     (num_batches_tracked 0)
   * MLP ``lin_{i}`` / ``norm_{i}``     -> pcdet's Sequential, Linear at 3i,
     BN at 3i+1
+  * AnchorHeadSingle's Dense ``conv_cls`` / ``conv_box`` / ``conv_dir_cls``
+    kernel (in, out) -> the 1x1 Conv2d weight (out, in, 1, 1)
+  * a sparse conv kernel (K * Cin, Cout), K in ``kernel_offsets`` order
+    (z, y, x) -> spconv 2.x's (Cout, kz, ky, kx, Cin) under pcdet's names of
+    the SECOND backbone (``backbone_3d.conv_input.0.weight``,
+    ``backbone_3d.conv1.0.conv1.weight``, ``backbone_3d.conv2.0.0.weight``, ...;
+    ``models/backbones_3d/spconv_backbone.py``)
 """
 import numpy as np
 import torch
@@ -78,12 +85,15 @@ def state_dict_from_jax_variables(variables, model_cfg):
         if model_cfg.get(key) is not None and name in params:
             _single_agent(sd, params[name], _sub(stats, name), model_cfg[key], f"{name}.")
     _single_agent(sd, params, stats, model_cfg)
+    if model_cfg.get("BACKBONE_3D") is not None:
+        _backbone_3d(sd, params["backbone_3d"], _sub(stats, "backbone_3d"))
     if "CORRECTOR" in model_cfg and model_cfg["CORRECTOR"]["NAME"] == "HunterJr":
         _corrector(sd, params["corrector"], _sub(stats, "corrector"))
     if model_cfg.get("V2X_MID_FUSION") is not None and "v2x_mid_fusion" in params:
         _disco(sd, params["v2x_mid_fusion"], _sub(stats, "v2x_mid_fusion"))
     if "DENSE_HEAD" in model_cfg:
-        _head(sd, params["dense_head"], _sub(stats, "dense_head"), model_cfg["DENSE_HEAD"])
+        put_head = _anchor_head if model_cfg["DENSE_HEAD"]["NAME"] == "AnchorHeadSingle" else _head
+        put_head(sd, params["dense_head"], _sub(stats, "dense_head"), model_cfg["DENSE_HEAD"])
     return sd
 
 
@@ -102,7 +112,7 @@ def _sub(stats, key):
 
 def _single_agent(sd, params, stats, cfg, prefix=""):
     """The VFE and the backbone of a single-agent network, under ``prefix``."""
-    if "VFE" in cfg:
+    if "VFE" in cfg and "vfe" in params:  # a mean VFE has no parameters
         _vfe(sd, params["vfe"], _sub(stats, "vfe"), cfg["VFE"], prefix)
     if "BACKBONE_2D" in cfg:
         _backbone(sd, params["backbone_2d"], _sub(stats, "backbone_2d"), cfg["BACKBONE_2D"], prefix)
@@ -153,6 +163,48 @@ def _head(sd, hd_p, hd_s, hcfg):
                 _put_conv(sd, f"{base}.{k}.0", hp[f"{name}_conv{k}"])
                 _put_bn(sd, f"{base}.{k}.1", hp[f"{name}_norm{k}"], _sub(hs, f"{name}_norm{k}"))
             _put_conv(sd, f"{base}.{num_conv - 1}", hp[f"{name}_out"])
+
+
+def _anchor_head(sd, hd_p, hd_s, hcfg):  # the head has no BN; the signature is _head's
+    for name in ("conv_cls", "conv_box", "conv_dir_cls"):
+        if name in hd_p:
+            k = np.asarray(hd_p[name]["kernel"])
+            sd[f"dense_head.{name}.weight"] = _tensor(k.T[:, :, None, None])
+            sd[f"dense_head.{name}.bias"] = _tensor(hd_p[name]["bias"])
+
+
+def _sparse_kernel(k, kernel_size):
+    """A JAX sparse conv kernel (K * Cin, Cout) -> (Cout, kz, ky, kx, Cin)."""
+    k = np.asarray(k)
+    cout = k.shape[1]
+    return _tensor(k.reshape(*kernel_size, -1, cout).transpose(4, 0, 1, 2, 3))
+
+
+def _backbone_3d(sd, bp, bs):
+    def block(jax_name, key):
+        p, s = bp[jax_name], _sub(bs, jax_name)
+        for i in (1, 2):
+            conv = p[f"conv{i}"]
+            sd[f"backbone_3d.{key}.conv{i}.weight"] = _sparse_kernel(conv["kernel"], (3, 3, 3))
+            _put_bn(sd, f"backbone_3d.{key}.bn{i}", conv["norm"], _sub(_sub(s, f"conv{i}"), "norm"))
+
+    def single(jax_name, key, ksize=(3, 3, 3)):
+        p, s = bp[jax_name], _sub(bs, jax_name)
+        sd[f"backbone_3d.{key}.0.weight"] = _sparse_kernel(p["kernel"], ksize)
+        _put_bn(sd, f"backbone_3d.{key}.1", p["norm"], _sub(s, "norm"))
+
+    single("conv_input", "conv_input")
+    i = 0
+    while f"conv1_{i}" in bp:
+        block(f"conv1_{i}", f"conv1.{i}")
+        i += 1
+    for name in ("conv2", "conv3", "conv4"):  # JAX's {name}_down, {name}_{i}
+        single(f"{name}_down", f"{name}.0")
+        i = 0
+        while f"{name}_{i}" in bp:
+            block(f"{name}_{i}", f"{name}.{i + 1}")
+            i += 1
+    single("conv_out", "conv_out", (3, 1, 1))
 
 
 def _corrector(sd, cp, cs):

@@ -4,7 +4,10 @@ Counterpart of ``workspace/v2x_gen_exchange_database.py``: runs a trained
 car or RSU sender over both splits (train, then val) with augmentation off,
 every sample once and in order, and writes each cloud's MoDAR boxes, its
 foreground points with their flow and the boxes' pooled flow into the
-exchange database (the files are the V2X channel).
+exchange database (the files are the V2X channel). ``--agent second_car`` and
+``second_rsu`` are the SECOND senders of the heterogeneous-network variant
+(``v2x_second_{car,rsu}.yaml``), whose database is
+``exchange_database_second``, the one ``v2x_second_ego.yaml`` reads.
 
     python -m pcp_tpu_torch.workspace.v2x_gen_exchange_database --agent car \
         --ckpt <checkpoint_epoch_n.pth> --synthetic [--out_dir DIR] \
@@ -13,7 +16,8 @@ exchange database (the files are the V2X channel).
 
 ``--set`` takes DATA_CONFIG overrides as KEY VALUE pairs. The database goes
 to ``--out_dir``, else to ``DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY`` under
-the data root (an absolute path stands as given).
+the data root (an absolute path stands as given): ``exchange_database_flow``
+for the pillar senders, ``exchange_database_second`` for the SECOND ones.
 """
 import argparse
 import ast
@@ -33,7 +37,12 @@ from ..utils.common_utils import create_logger
 AGENT_CFGS = {
     "car": ROOT_DIR / "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_car.yaml",
     "rsu": ROOT_DIR / "tools/cfgs/v2x_sim_models/v2x_pointpillar_basic_rsu.yaml",
+    "second_car": ROOT_DIR / "tools/cfgs/v2x_sim_models/v2x_second_car.yaml",
+    "second_rsu": ROOT_DIR / "tools/cfgs/v2x_sim_models/v2x_second_rsu.yaml",
 }
+# the database each sender writes unless DATA_CONFIG or --out_dir names another
+EXCHANGE_DIRS = {"car": "exchange_database_flow", "rsu": "exchange_database_flow",
+                 "second_car": "exchange_database_second", "second_rsu": "exchange_database_second"}
 
 BATCH_SIZE = 2
 
@@ -61,6 +70,7 @@ def gen_exchange_database(agent="car", ckpt=None, synthetic=False, out_dir=None,
     cfg.DATA_CONFIG["DATASET_DOWNSAMPLING_RATIO"] = 1
     if synthetic:
         cfg.DATA_CONFIG["USE_SYNTHETIC_DATA"] = True
+    cfg.DATA_CONFIG.setdefault("EXCHANGE_DATABASE_DIRECTORY", EXCHANGE_DIRS[agent])
     if cfg_overrides:
         cfg.DATA_CONFIG.update(cfg_overrides)
 
@@ -84,8 +94,7 @@ def gen_exchange_database(agent="car", ckpt=None, synthetic=False, out_dir=None,
         ds.training = False
         loader = DataLoader(ds, batch_size=BATCH_SIZE, shuffle=False, drop_last=False,
                             num_workers=workers, pin_memory=device.type == "cuda")
-        exch_dir = out_dir or (ds.root_path / cfg.DATA_CONFIG.get("EXCHANGE_DATABASE_DIRECTORY",
-                                                                  "exchange_database_flow"))
+        exch_dir = out_dir or (ds.root_path / cfg.DATA_CONFIG.EXCHANGE_DATABASE_DIRECTORY)
         writer = make_exchange_writer(ExchangeDatabase(exch_dir), bg_prob_thresh=thresh)
         n = 0
         with torch.inference_mode():
@@ -115,7 +124,7 @@ def data_overrides(pairs):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="write a sender's exchange database")
-    parser.add_argument("--agent", choices=["car", "rsu"], default="car")
+    parser.add_argument("--agent", choices=sorted(AGENT_CFGS), default="car")
     parser.add_argument("--ckpt", type=str, required=True)
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--out_dir", type=str, default=None)

@@ -286,9 +286,9 @@ def test_late_eval_cli_without_checkpoint_matches_jax(late_db, tmp_path):
 
 def test_early_config_trains_and_disco_raises(tmp_path):
     """One epoch of the reduced early ego through the train CLI on the CPU;
-    a config with MODEL keys that are still not ported (A11: the SECOND
-    ego's 3D backbone) and a dataset that is not (KITTI) refuse, naming
-    A11."""
+    a config with a MODEL module that is still not ported (A11.6: the
+    SECOND ego with PartA2's UNetV2 as its 3D backbone) and a dataset that
+    is not (KITTI) refuse, naming A11."""
     argv = ["--batch_size", "2", "--workers", "0", "--device", "cpu", "--extra_tag", "early",
             "--output_root", str(tmp_path), "--num_epochs_to_eval", "0", "--precise_bn", "0",
             "--seed", "1"]
@@ -299,7 +299,8 @@ def test_early_config_trains_and_disco_raises(tmp_path):
     assert out["steps"] > 0 and np.isfinite(out["losses"]).all()
     assert out["launches"]["bev_scatter_max"] == 0  # the plain version on the CPU
     with pytest.raises(NotImplementedError, match="A11"):
-        train_cli.main(["--cfg_file", f"{CFGS}/v2x_second_ego.yaml", *argv, "--epochs", "1"])
+        train_cli.main(["--cfg_file", f"{CFGS}/v2x_second_ego.yaml", *argv, "--epochs", "1",
+                        "--set", "MODEL.BACKBONE_3D.NAME", "UNetV2"])
     _, tcfg = cfg_pair("v2x_sim_dataset_ego_early")
     tcfg.DATASET = "KittiDataset"
     with pytest.raises(NotImplementedError, match="A11"):
