@@ -194,6 +194,38 @@ a11. (after phase 9) the anchor-head PointPillar car
    evaluated (its items must carry MoDAR rows from there); each stage's
    seconds and launches.
 
+jr. (after a11) the nuScenes "pointpillar_jr" family at full width on the
+   card: ``pointpillar_jr_nomap``, ``_withmap``, ``_corr_withmap`` and
+   ``oracle_pointpillar_jr_withmap`` (``tools/cfgs/nuscenes_models``: 512x512
+   grid, the SCConv stride-4 backbone to 384 channels at 128x128, six
+   CenterHeads of the ten classes with the vel and iou branches), weights
+   from ``--seed`` (every hm output bias at JR_HM_BIAS, the corrector's seg
+   bias balanced as in phase 6), b4 x 262144 points made as
+   ``tests/test_nuscenes_stack.py`` makes them, at each config's width (7
+   or 12 features; the VFE reads 5 or 10). For each: one deterministic
+   forward with every count at 0 (one B1 launch, 9-column boxes); B1 exact
+   on its inputs, timed beside its bound; b1 card against CPU (the VFE's
+   BEV within JR_BEV_TOL, the head's input within JR_HEAD_INPUT_REL of its
+   largest |value|, every head branch within JR_HEAD_TOL, each head's
+   surviving boxes under the margin rule, the corrector's decisions as
+   phase 6 holds them); the forward's time, stages
+   (vfe, map_to_bev, backbone_2d, corrector, dense_head, post_processing)
+   and peak memory; JR_TRAIN_STEPS train steps on 10-column gt (velocity),
+   one B1 launch each, every loss finite, the step's time, split, stages
+   and peak memory (the batch halved if a step does not fit). Then
+   ``pointpillar_jr_corr_withmap_teacher``: its teacher overlaid bitwise
+   from the oracle model's checkpoint of this phase, an eval forward, and
+   the train step refusing with HunterJr's shape error where the JAX
+   package's step fails. Then the CLIs in ``build/jr/nuscenes`` on a fake
+   nuScenes database of 2 scenes of 3 keyframes after 9 sweeps of 26000
+   points (``tests/torch_fake_devkit.py``):
+   ``create_nuscenes_infos`` and a map raster an info without the devkit,
+   OpenCV or matplotlib, and each model evaluated from this phase's weights
+   (no CLI training: the dataset's gt has no velocity, and the JAX
+   package's training step fails on it). Last the a11_2 check: the fake
+   V2X-Sim database through ``NuScenesV2XSource``, the split, RSU and car
+   info pickles, and one car forward on the card from them.
+
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
 ``"sender_train"``, the trained ego's under ``"trained_ego"``, the bench's
@@ -202,7 +234,9 @@ profile under ``"bench_profile"``, phase 11's under ``"serving"``, phase
 ``"pipeline"`` and phase a11's under ``"a11"``; each kernel's launches in
 each a11 model's forward, train step and CLI stage under
 ``"launches_per_a11_forward"``, ``"launches_per_a11_train_step"`` and
-``"launches_in_a11_cli"``; in each pipeline stage under
+``"launches_in_a11_cli"``, and in each JR model's forward, train step and
+CLI stage under ``"launches_per_jr_forward"``, ``"..._jr_train_step"`` and
+``"launches_in_jr_cli"``, phase jr's record under ``"jr"``; in each pipeline stage under
 ``"launches_in_pipeline"``, in a DiscoNet eval forward and train step under
 ``"launches_per_disco_eval_forward"`` and ``"..._train_step"``, in a
 serving mode's forward under ``"launches_per_serving_forward"``, in a
@@ -3357,6 +3391,481 @@ def phase_a11(seed):
     return forward, step, record
 
 
+
+# ------------------------------------------------------------ jr. the nuScenes JR family
+
+JR_CFGS = REPO / "tools" / "cfgs" / "nuscenes_models"
+JR_MODELS = ("pointpillar_jr_nomap", "pointpillar_jr_withmap", "pointpillar_jr_corr_withmap",
+             "oracle_pointpillar_jr_withmap")
+JR_TEACHER = "pointpillar_jr_corr_withmap_teacher"
+JR_N = 262144  # points a cloud: a 10-sweep nuScenes cloud
+JR_TRAIN_STEPS = 2  # steps on one batch, each loss finite
+JR_HM_BIAS = -1.0  # the seeded heads' hm output bias: every head scores boxes above SCORE_THRESH
+# card against CPU at b1. Every feature of these points spans [-48, 48], so
+# the VFE's sums reach about 1e2; its BEV (atol, rtol) and every head branch
+# (atol, rtol) keep a11's BEV tolerance: the VFE's BEV differed by up to
+# 3.8e-5 and the branches by up to 2.2e-5 (readings on an H100 80GB HBM3 at
+# 700 W). After the SCConv stack (21 float32 convs, TF32 off) the head's
+# input differed by up to 1.01e-4 on values up to 34.7, 2.7e-6 to 3.6e-6 of
+# its largest |value| in the four models, where the CPU at 8 and 4 threads
+# differs by under 3.3e-6 absolute: the card's convolution algorithms round
+# apart from the CPU's. So the head's input is held within JR_HEAD_INPUT_REL
+# of its largest |value| (about 8x above the largest of those ratios).
+JR_BEV_TOL = (1e-4, 1e-4)
+JR_HEAD_TOL = (1e-4, 1e-4)
+JR_HEAD_INPUT_REL = 3e-5
+# the fake nuScenes database of the CLI stages: 2 scenes (train, val) of 3
+# keyframes, each after 9 non-key sweeps, 26000 points a sweep
+JR_DB = {"num_scenes": 2, "keyframes": 3, "sweeps": 10, "points": 26000, "objects": 30}
+
+
+def jr_points(rng, b, n, num_features):
+    """Points as ``tests/test_nuscenes_stack.py`` makes them, scaled to the
+    configs' range: every feature uniform in [-48, 48] (12 of 12.8 there),
+    intensity in [0, 1]."""
+    pts = rng.uniform(-48.0, 48.0, (b, n, num_features)).astype(np.float32)
+    pts[..., 3] = rng.uniform(0, 1, (b, n))
+    return pts
+
+
+# (w, l, h) a class of CLASS_NAMES, for the training batch's gt boxes
+JR_SIZES = ((1.9, 4.5, 1.6), (2.5, 7.0, 3.0), (2.8, 6.5, 3.2), (2.9, 11.0, 3.5), (2.6, 9.0, 3.8),
+            (2.5, 0.5, 1.0), (0.8, 2.1, 1.5), (0.6, 1.7, 1.3), (0.7, 0.7, 1.8), (0.4, 0.4, 1.0))
+
+
+def jr_train_batch(rng, b, n, num_features, boxes_per_cloud=40):
+    """``jr_points`` and gt boxes [x y z dx dy dz yaw vx vy cls] of the ten
+    classes, padded to 500 rows, as ``tests/test_nuscenes_stack.py`` lays
+    them out (velocity columns before the class)."""
+    pts = jr_points(rng, b, n, num_features)
+    gt = np.zeros((b, 500, 10), np.float32)
+    k = boxes_per_cloud
+    cls = rng.integers(0, 10, (b, k))
+    gt[:, :k, 0:2] = rng.uniform(-48, 48, (b, k, 2))
+    gt[:, :k, 2] = rng.uniform(-2, 0, (b, k))
+    gt[:, :k, 3:6] = np.array(JR_SIZES)[cls][..., [1, 0, 2]]
+    gt[:, :k, 6] = rng.uniform(-np.pi, np.pi, (b, k))
+    gt[:, :k, 7:9] = rng.normal(0, 2, (b, k, 2))
+    gt[:, :k, 9] = cls + 1
+    return {"points": torch.from_numpy(pts), "points_mask": torch.ones((b, n), dtype=torch.bool),
+            "gt_boxes": torch.from_numpy(gt)}
+
+
+def jr_seeded(model, seed):
+    """``seeded_state_dict`` with every head's hm output bias at JR_HM_BIAS."""
+    sd = seeded_state_dict(model, seed)
+    for h, head in enumerate(model.dense_head.heads_list):
+        key = f"dense_head.heads_list.{h}.hm.{len(head.hm) - 1}.bias"
+        sd[key] = torch.full_like(sd[key], JR_HM_BIAS)
+    model.load_state_dict(sd, strict=True)
+    return sd
+
+
+def hold_heads(name, gpu, cpu, pp, phase="jr"):
+    """Every head's surviving boxes of one cloud under the margin rule, the
+    heatmap of each head its decode scores. Returns the boxes matched."""
+    from pcp_tpu_torch.utils.box_match import match_surviving_boxes
+
+    post = int(pp.NMS_CONFIG.NMS_POST_MAXSIZE)
+    matched = 0
+    for h, pred in enumerate(cpu["head_preds"]):
+        heat = torch.sigmoid(pred["hm"][0].double()).numpy().reshape(-1)
+        sl = slice(h * post, (h + 1) * post)
+        matched += match_surviving_boxes(
+            {k: v[0, sl].cpu().numpy() for k, v in gpu["final_box_dicts"].items()},
+            {k: v[0, sl].numpy() for k, v in cpu["final_box_dicts"].items()}, heat,
+            top_k=int(pp.MAX_OBJ_PER_SAMPLE), score_thresh=float(pp.SCORE_THRESH), post_max=post,
+            min_matched=1)
+    return matched
+
+
+def _jr_card_vs_cpu(name, cfg_path, sd, model, host, pp):
+    """b1 eval on the card (deterministic) against the CPU: the VFE's BEV
+    (JR_BEV_TOL), the head's input BEV (JR_HEAD_INPUT_REL of its largest
+    |value|) and every branch of every head (JR_HEAD_TOL), the surviving
+    boxes of every head under the margin rule.
+    With a corrector, its decisions as phase 6 holds them: points whose
+    decision falls apart within DECISION_BAND of its boundary are dropped
+    from the cloud and both forwards run again."""
+    from pcp_tpu_torch.entry import build
+
+    _, _, cpu_model = build(cfg_path, device="cpu")
+    cpu_model.load_state_dict(sd, strict=True)
+    one = {k: v[:1].clone() for k, v in host.items()}
+    dropped = 0
+    for _ in range(3):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with torch.inference_mode():
+            gpu_one = _on(one, "cuda")
+            gpu = model(gpu_one)
+            torch.cuda.synchronize()
+        torch.use_deterministic_algorithms(False)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            cpu = cpu_model(one)
+        cpu_s = time.perf_counter() - t0
+        if not hasattr(model, "corrector"):
+            break
+        got, _ = corrector_decisions(model, gpu_one, gpu)
+        want, margin = corrector_decisions(cpu_model, one, cpu)
+        flips = (got != want).any(-1) & one["points_mask"]
+        if not flips.any():
+            break
+        if not (margin[flips] < DECISION_BAND).any(-1).all():
+            raise AssertionError(f"jr {name}: a corrector decision differs between card and CPU "
+                                 f"away from its boundary: margins {margin[flips].tolist()}")
+        dropped += int(flips.sum())
+        one["points_mask"] = one["points_mask"] & ~flips
+    else:
+        raise AssertionError(f"jr {name}: corrector decisions still differ after three rounds")
+    err = {}
+
+    def hold(key, got, want, tol):
+        err[key] = (got.cpu() - want).abs().max().item()
+        torch.testing.assert_close(got.cpu(), want, atol=tol[0], rtol=tol[1],
+                                   msg=lambda m: f"jr {name} b1 card vs CPU, {key}: {m}")
+
+    scale = cpu["spatial_features_2d"].abs().max().item()
+    hold("vfe_bev", gpu["spatial_features"], cpu["spatial_features"], JR_BEV_TOL)
+    hold("head_input_bev", gpu["spatial_features_2d"], cpu["spatial_features_2d"],
+         (JR_HEAD_INPUT_REL * scale, 0.0))
+    for h, pred in enumerate(cpu["head_preds"]):
+        for branch, t in pred.items():
+            hold(f"head{h}.{branch}", gpu["head_preds"][h][branch], t, JR_HEAD_TOL)
+    matched = hold_heads(name, gpu, cpu, pp)
+    worst = max((k for k in err if k.startswith("head") and k != "head_input_bev"), key=err.get)
+    log("jr", f"{name}: b1 card vs CPU ({cpu_s:.1f} s on the CPU): vfe_bev max_abs_err "
+              f"{err['vfe_bev']} (atol {JR_BEV_TOL[0]}, rtol {JR_BEV_TOL[1]}), head_input_bev "
+              f"{err['head_input_bev']} (atol {JR_HEAD_INPUT_REL} x its largest |value| "
+              f"{scale}), the largest of the "
+              f"{len(err) - 2} head branches {worst} {err[worst]} (atol {JR_HEAD_TOL[0]}, rtol "
+              f"{JR_HEAD_TOL[1]})"
+              + (f"; every corrector decision equal ({dropped} points within {DECISION_BAND} of "
+                 "a boundary decided apart and dropped)" if hasattr(model, "corrector") else "")
+              + f"; {matched} surviving boxes of the six heads matched under the margin rule")
+    return {"max_abs_err": err, "head_input_scale": scale, "boxes_matched": matched,
+            "points_dropped": dropped, "cpu_s": cpu_s}
+
+
+def run_jr_model(name, seed, build_dir):
+    """One JR model at full width on the card: the counted forward at b4 x
+    JR_N, B1 on its inputs, b1 card against CPU, the forward's time, stages
+    and peak memory, then JR_TRAIN_STEPS train steps (one B1 launch each),
+    the step's time, split, stages and peak memory, the batch halved if a
+    step does not fit. Saves the trained weights to ``build_dir/{name}.pth``.
+    Returns (record, launches in one forward, in one train step)."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state, make_train_step
+
+    cfg_path = JR_CFGS / f"{name}.yaml"
+    cfg, info, model = build(cfg_path, device="cuda")
+    b, nf = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), info.num_point_features
+    rng = np.random.default_rng(seed + 30)
+    host = {"points": torch.from_numpy(jr_points(rng, b, JR_N, nf)),
+            "points_mask": torch.ones((b, JR_N), dtype=torch.bool)}
+    batch = _on(host, "cuda")
+    sd = jr_seeded(model, seed)
+    if hasattr(model, "corrector"):
+        balance_seg_bias(model, sd, batch)
+    want = {k: int(k == "bev_scatter_max") for k in bs.launches}
+
+    seen = []
+    scatter = model.vfe.scatter_max
+    model.vfe.scatter_max = lambda *args: seen.append(args) or scatter(*args)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(batch)
+        torch.cuda.synchronize()
+        counts = dict(bs.launches)
+    torch.use_deterministic_algorithms(False)
+    model.vfe.scatter_max = scatter
+    fbd = out["final_box_dicts"]
+    log("jr", f"{name}: one b{b} x {JR_N} forward, full width ({cfg.MODEL.BACKBONE_2D.NAME} "
+              f"{tuple(out['spatial_features'].shape)} -> {tuple(out['spatial_features_2d'].shape)}), "
+              f"{nf}-feature points of which the VFE reads "
+              f"{cfg.MODEL.VFE.NUM_RAW_POINT_FEATURES}: kernel launches {counts}; boxes "
+              f"{tuple(fbd['pred_boxes'].shape)}, valid per cloud {fbd['pred_valid'].sum(1).tolist()}")
+    if counts != want:
+        raise AssertionError(f"jr {name}: expected launches {want}, got {counts}")
+    if not torch.isfinite(fbd["pred_boxes"]).all() or not fbd["pred_valid"].any(1).all() \
+            or fbd["pred_boxes"].shape[-1] != 9:
+        raise AssertionError(f"jr {name}: boxes not finite, not 9 wide or a cloud without one")
+    record = {"config": str(cfg_path.relative_to(REPO)), "batch": b, "points": JR_N,
+              "point_features": nf, "forward_launches": counts}
+    (feats, pids, h, w), = seen
+    record["bev_scatter_max"] = b1_on_inputs("jr", f"{name}: the forward's", feats, pids, h, w)
+    del seen, feats, pids, out
+    pp = cfg.MODEL.DENSE_HEAD.POST_PROCESSING
+    record["card_vs_cpu"] = _jr_card_vs_cpu(name, cfg_path, sd, model, host, pp)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        record["forward_ms"] = cuda_ms(lambda: model(batch), warmup=2, iters=5)
+        record["forward_peak_bytes"] = torch.cuda.max_memory_allocated()
+        record["forward_stages_ms"] = stage_ms(a11_stages(model), batch, iters=3)
+    log("jr", f"{name}: forward b{b} x {JR_N}, seeded weights, TF32 off: median "
+              f"{record['forward_ms']:.6f} ms over 5 after 2 warm-ups, "
+              f"{b / record['forward_ms'] * 1e3:.3f} clouds/s; peak memory allocated "
+              f"{record['forward_peak_bytes']} bytes; stages: "
+              + ", ".join(f"{k} {v:.6f}" for k, v in record["forward_stages_ms"].items())
+              + " (stages: median ms of 3)")
+    del batch
+
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=TRAIN_STEPS,
+                                   total_epochs=1)
+    state = create_train_state(model, optimizer, seed)
+    step = make_train_step(model, optimizer)
+    tb_ = b
+    while True:
+        train = _on(jr_train_batch(np.random.default_rng(seed + 31), tb_, JR_N, nf), "cuda")
+        try:
+            bs.reset_launches()
+            curve = [step(train) for _ in range(JR_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if tb_ == 1:
+                raise
+            del train
+            torch.cuda.empty_cache()
+            log("jr", f"{name}: a b{tb_} train step does not fit in the card's memory; halving")
+            tb_ //= 2
+    train_counts = dict(bs.launches)
+    losses = [loss.item() for loss, _ in curve]
+    tbs = [{k: v.item() for k, v in t.items()} for _, t in curve]
+    log("jr", f"{name}: b{tb_} x {JR_N} train steps from create_train_state: losses "
+              + " ".join(f"{v:.6f}" for v in losses) + "; tb first -> last: "
+              + ", ".join(f"{k} {tbs[0][k]:.6f} -> {tbs[-1][k]:.6f}" for k in tbs[0])
+              + f"; launches {train_counts} in {JR_TRAIN_STEPS} steps, step count {state.step}")
+    bad = sorted({k for t in tbs for k, v in t.items() if not np.isfinite(v)})
+    if bad or not np.isfinite(losses).all():
+        raise AssertionError(f"jr {name}: losses {losses}, tb not finite {bad}")
+    if train_counts != {k: JR_TRAIN_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"jr {name}: expected {want} launches a step, got {train_counts}")
+    step_ms, split, peak = time_train_steps(model, optimizer, train, iters=3, warmup=1)
+    stages = stage_ms(a11_train_stages(model), train, iters=3)
+    per_step = {k: v // JR_TRAIN_STEPS for k, v in train_counts.items()}
+    record.update(train_batch=tb_, losses=losses, train_launches_per_step=per_step, step_ms=step_ms,
+                  samples_per_s=tb_ / step_ms * 1e3, **{f"{k}_ms": v for k, v in split.items()},
+                  peak_bytes=peak, train_stages_ms=stages)
+    log("jr", f"{name}: train step b{tb_} x {JR_N}, TF32 off: median {step_ms:.6f} ms over 3 "
+              f"after 1 warm-up (host clock, synchronized), {tb_ / step_ms * 1e3:.3f} samples/s; "
+              "split (median ms, CUDA events): " + ", ".join(f"{k} {v:.6f}" for k, v in split.items())
+              + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB); training forward "
+              "stages (median ms of 3): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
+    build_dir.mkdir(parents=True, exist_ok=True)
+    torch.save({"model_state": model.state_dict(), "epoch": 1, "it": JR_TRAIN_STEPS},
+               build_dir / f"{name}.pth")
+    del model, optimizer, state, train, curve
+    torch.cuda.empty_cache()
+    return record, counts, per_step
+
+
+def jr_teacher(seed, build_dir):
+    """The teacher config: its teacher takes the oracle model's VFE, scatter
+    and backbone from the oracle's checkpoint (``overlay_bev_maker_weights``,
+    bitwise), an eval forward at b4 x JR_N launches B1 once (the teacher
+    runs only in training), and a train step refuses with HunterJr's shape
+    error, after its forward's two B1 launches (the teacher's VFE and the
+    model's), where the JAX package's step fails (the corrector's BEV is 64
+    channels wide, the teacher's 384)."""
+    from pcp_tpu_torch.entry import build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.checkpoint import load_params_from_file, overlay_bev_maker_weights
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state, take_train_step
+
+    cfg, info, model = build(JR_CFGS / f"{JR_TEACHER}.yaml", device="cuda")
+    b, nf = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), info.num_point_features
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=1, total_epochs=1)
+    create_train_state(model, optimizer, seed)
+    ckpt = build_dir / "oracle_pointpillar_jr_withmap.pth"
+    overlay_bev_maker_weights(model, "teacher", ckpt)
+    oracle = load_params_from_file(ckpt)
+    teacher = model.teacher.state_dict()
+    for key, v in teacher.items():
+        if not torch.equal(v.cpu(), oracle[key].cpu()):
+            raise AssertionError(f"jr teacher: teacher.{key} is not the oracle's")
+    train = _on(jr_train_batch(np.random.default_rng(seed + 32), b, JR_N, nf), "cuda")
+    model.eval()
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model({k: v for k, v in train.items() if k != "gt_boxes"})
+        torch.cuda.synchronize()
+        eval_counts = dict(bs.launches)
+    if eval_counts != {k: int(k == "bev_scatter_max") for k in bs.launches} \
+            or not torch.isfinite(out["final_box_dicts"]["pred_boxes"]).all():
+        raise AssertionError(f"jr teacher: eval launches {eval_counts}")
+    bs.reset_launches()
+    try:
+        take_train_step(model, optimizer, train)
+    except ValueError as e:
+        refused = str(e)
+        if not refused.startswith("the corrector's BEV (") or "differ in shape" not in refused:
+            raise
+    else:
+        raise AssertionError("jr teacher: the train step ran; the JAX package's fails there")
+    step_counts = dict(bs.launches)
+    if step_counts != {k: 2 * v for k, v in eval_counts.items()}:
+        raise AssertionError(f"jr teacher: launches before the refusal {step_counts}")
+    log("jr", f"{JR_TEACHER}: teacher overlaid from {ckpt.relative_to(REPO)} ({len(teacher)} "
+              f"tensors, bitwise); eval forward b{b} x {JR_N} launches {eval_counts}; the train "
+              f"step refuses with HunterJr's shape error where the JAX package's fails, after "
+              f"launches {step_counts}: {refused}")
+    del model, optimizer, train, out
+    torch.cuda.empty_cache()
+    return {"teacher_tensors": len(teacher), "eval_launches": eval_counts,
+            "train_refused": refused, "train_launches_before_refusal": step_counts}
+
+
+def jr_cli(root, build_dir):
+    """The nuScenes data path through the port's CLIs in ``root``: the fake
+    database (``tests/torch_fake_devkit.py``, JR_DB), ``create_nuscenes_infos``
+    with no devkit, a map raster an info (the port's
+    ``make_map_representation``); then each JR model evaluated from this
+    phase's trained weights (one B1 launch a batch, metrics finite). No CLI
+    stage trains: the dataset's gt has no velocity columns, and the JAX
+    package's training step fails on it. Returns the record."""
+    import pickle
+    import shutil
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_fake_devkit import make_nusc_db, write_maps
+
+    from pcp_tpu_torch.datasets.nuscenes.info_builder import create_nuscenes_infos
+    from pcp_tpu_torch.datasets.nuscenes.map_utils import make_map_representation
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.tools import test as test_cli
+
+    shutil.rmtree(root, ignore_errors=True)
+    for mod in ("cv2", "matplotlib", "nuscenes"):
+        if mod in sys.modules:
+            raise AssertionError(f"jr: {mod} was imported")
+    record = {}
+    t0 = time.perf_counter()
+    fake, version = make_nusc_db(root, **JR_DB)
+    data = root / version
+    record["db_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    infos = create_nuscenes_infos(version, data, data, max_sweeps=JR_DB["sweeps"], nusc=fake)
+    record["infos_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for split, split_infos in zip(("train", "val"), infos):
+        write_maps(data, split_infos, make_map_representation,
+                   (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0))
+        with open(data / f"nuscenes_infos_{JR_DB['sweeps']}sweeps_{split}.pkl", "wb") as f:
+            pickle.dump(split_infos, f)
+    record["maps_seconds"] = time.perf_counter() - t0
+    sweeps = [len(i["sweeps"]) for s in infos for i in s]
+    log("jr", f"fake nuScenes database {JR_DB} in {record['db_seconds']:.3f} s; "
+              f"create_nuscenes_infos {record['infos_seconds']:.3f} s: {len(infos[0])} train and "
+              f"{len(infos[1])} val infos, past sweeps {sweeps}, gt boxes "
+              f"{[len(i['gt_boxes']) for s in infos for i in s]}; maps {record['maps_seconds']:.3f} s")
+    data_sets = ["DATA_CONFIG.DATA_PATH", str(root), "DATA_CONFIG.VERSION", version,
+                 "DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST", "['gt_sampling']",
+                 "DATA_CONFIG.MAX_POINTS_PER_SAMPLE", str(JR_N)]
+    base = ["--device", "cuda", "--workers", "0", "--output_root", str(root / "output"),
+            "--extra_tag", "smoke"]
+
+    for name in JR_MODELS:
+        bs.reset_launches()
+        t0 = time.perf_counter()
+        out = test_cli.main(["--cfg_file", str(JR_CFGS / f"{name}.yaml"), *base, "--batch_size",
+                             "4", "--ckpt", str(build_dir / f"{name}.pth"), "--eval_tag", "smoke",
+                             "--set", *data_sets])
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0, "launches": dict(bs.launches),
+               **{k: float(out[k]) for k in ("mAP", "NDS")}}
+        if rec["launches"] != {k: int(k == "bev_scatter_max") for k in bs.launches} or \
+                not all(np.isfinite(rec[k]) for k in ("mAP", "NDS")):
+            raise AssertionError(f"jr eval_{name}: {rec}")
+        record[f"eval_{name}"] = rec
+        log("jr", f"eval_{name}: {rec['seconds']:.3f} s, {len(infos[1])} val clouds of 10 "
+                  f"sweeps, mAP {rec['mAP']:.6f} NDS {rec['NDS']:.6f} (this phase's two-step "
+                  f"weights); kernel launches {rec['launches']}")
+    for mod in ("cv2", "matplotlib", "nuscenes"):
+        if mod in sys.modules:
+            raise AssertionError(f"jr: {mod} was imported")
+    return record
+
+
+def a11_2_check(seed, root):
+    """The real V2X-Sim info building where the card runs: the fake V2X-Sim
+    database of ``tests/torch_fake_devkit.py`` through ``NuScenesV2XSource``
+    with the database handed in, the split, RSU and car info pickles, the
+    car's dataset read back from them and one car forward on the card at
+    full width (one B1 launch). Returns the record."""
+    import shutil
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_fake_devkit import make_v2x_db
+
+    from pcp_tpu_torch.datasets import build_dataloader
+    from pcp_tpu_torch.datasets.v2x_sim.source import NuScenesV2XSource
+    from pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_car import V2XSimDataset_CAR
+    from pcp_tpu_torch.datasets.v2x_sim.v2x_sim_dataset_rsu import V2XSimDataset_RSU
+    from pcp_tpu_torch.entry import CFG_CAR, build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    fake, version = make_v2x_db(root)
+    src = NuScenesV2XSource(root / version, version, nusc=fake)
+    cfg, _, model = build(CFG_CAR, device="cuda")
+    dcfg = cfg.DATA_CONFIG
+    dcfg.update({"DATA_PATH": str(root), "VERSION": version, "USE_SYNTHETIC_DATA": False,
+                 "MINI_TRAINVAL_STRIDE": 1, "THRESHOLD_BOXES_BY_POINTS": 1})
+    rsu_train, rsu_val = V2XSimDataset_RSU(dcfg, cfg.CLASS_NAMES, training=True,
+                                           source=src).build_v2x_sim_info()
+    car_train, car_val = V2XSimDataset_CAR(dcfg, cfg.CLASS_NAMES, training=True,
+                                           source=src).build_v2x_sim_info()
+    build_s = time.perf_counter() - t0
+    ds, loader, _ = build_dataloader(dcfg, cfg.CLASS_NAMES, batch_size=2, training=False,
+                                     workers=0, source=src)
+    batch = next(iter(loader))
+    model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+    dev = {k: torch.as_tensor(batch[k]).cuda() for k in ("points", "points_mask")}
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(dev)
+        torch.cuda.synchronize()
+    counts = dict(bs.launches)
+    fbd = out["final_box_dicts"]
+    rec = {"build_seconds": build_s, "rsu_infos": [len(rsu_train), len(rsu_val)],
+           "car_infos": {s: {k: len(v) for k, v in d.items()} for s, d in
+                         (("train", car_train), ("val", car_val))},
+           "car_items": len(ds), "points": list(batch["points"].shape), "launches": counts}
+    log("a11_2", f"fake V2X-Sim database through NuScenesV2XSource: split, RSU infos "
+                 f"{rec['rsu_infos']} (train, val), car infos {rec['car_infos']} in {build_s:.3f} s; "
+                 f"the car's dataset read back from the pickles: {len(ds)} items, semantic "
+                 f"channels left out; one b2 car forward on the card, points "
+                 f"{rec['points']}: launches {counts}, valid boxes {fbd['pred_valid'].sum(1).tolist()}")
+    if counts != {k: int(k == "bev_scatter_max") for k in bs.launches} or len(ds) != 6 \
+            or rec["rsu_infos"] != [3, 3] or not torch.isfinite(fbd["pred_boxes"]).all():
+        raise AssertionError(f"a11_2: {rec}")
+    del model, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_jr(seed):
+    """Phase jr: the four JR models at full width on the card, the teacher
+    config, the CLI stages on a fake nuScenes database, and the a11_2 check.
+    Returns (launches of each kernel in each model's forward and train step,
+    the record)."""
+    build_dir = REPO / "build" / "jr"
+    record, forward, step = {}, {}, {}
+    for name in JR_MODELS:
+        record[name], forward[name], step[name] = run_jr_model(name, seed, build_dir)
+    record["teacher"] = jr_teacher(seed, build_dir)
+    record["cli"] = jr_cli(build_dir / "nuscenes", build_dir)
+    record["a11_2"] = a11_2_check(seed, build_dir / "v2x_sim")
+    return forward, step, record
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3426,13 +3935,22 @@ def main(argv=None):
         record["launches_per_a11_train_step"] = {m: c[kernel] for m, c in a11_step.items()}
         record["launches_in_a11_cli"] = {name: rec["launches"][kernel]
                                          for name, rec in a11["cli"].items()}
+    jr_forward, jr_step, jr = phase_jr(args.seed)
+    lap("jr")
+    for kernel, record in records.items():
+        record["launches_per_jr_forward"] = {m: c[kernel] for m, c in jr_forward.items()}
+        record["launches_per_jr_train_step"] = {m: c[kernel] for m, c in jr_step.items()}
+        record["launches_in_jr_cli"] = {name: rec["launches"][kernel]
+                                        for name, rec in jr["cli"].items()
+                                        if name.startswith("eval_")}
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
     print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
                       "sender_train": sender_train, "trained_ego": trained,
                       "bench_profile": bench["profile"], "serving": serving, "dp": dp,
                       "bf16_train": bf16,
-                      "disco": disco, "pipeline": pipeline, "a11": a11, "phase_seconds": seconds}))
+                      "disco": disco, "pipeline": pipeline, "a11": a11, "jr": jr,
+                      "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

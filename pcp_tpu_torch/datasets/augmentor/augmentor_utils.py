@@ -119,3 +119,19 @@ def global_scaling(data_dict, scale_range, rng):
         tf = np.diag([noise_scale] * 3 + [1.0])
         _conjugate_instances_tf(data_dict, tf)
     return noise_scale
+
+
+def global_translation(data_dict, noise_translate_std, rng):
+    """Shift the points, the boxes and the correction transforms by one
+    normal draw per axis (x, y, z in that order)."""
+    if not isinstance(noise_translate_std, (list, tuple, np.ndarray)):
+        noise_translate_std = [noise_translate_std] * 3
+    noise = np.array([rng.normal(0, s, 1) for s in noise_translate_std],
+                     dtype=np.float64).T.reshape(3)
+    data_dict["points"][:, :3] += noise
+    data_dict["gt_boxes"][:, :3] += noise
+    if "instances_tf" in data_dict:
+        tf = np.eye(4)
+        tf[:3, 3] = noise
+        _conjugate_instances_tf(data_dict, tf)
+    return noise

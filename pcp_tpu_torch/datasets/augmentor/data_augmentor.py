@@ -3,9 +3,11 @@
 
 Each ``AUG_CONFIG_LIST`` entry not in ``DISABLE_AUG_LIST`` becomes a step
 applied in order, drawing from the sample's ``np.random.RandomState``. The
-V2X configs use the world flip, rotation and scaling; the local, frustum and
-pyramid augmentations and ``gt_sampling`` serve only the KITTI and nuScenes
-configs and raise, naming ROADMAP A11.
+V2X configs use the world flip, rotation and scaling, the nuScenes configs
+also the world translation; the local, frustum and pyramid augmentations and
+``gt_sampling`` (whose database of the nuScenes configs is not in the
+repository: the CLIs put it in ``DISABLE_AUG_LIST``) raise, naming ROADMAP
+A11.5.
 """
 from functools import partial
 
@@ -13,7 +15,7 @@ import numpy as np
 
 from . import augmentor_utils
 
-NOT_PORTED = ("random_world_translation", "random_local_translation", "random_local_rotation",
+NOT_PORTED = ("random_local_translation", "random_local_rotation",
               "random_local_scaling", "random_world_frustum_dropout",
               "random_local_frustum_dropout", "random_local_pyramid_aug", "gt_sampling")
 
@@ -32,8 +34,7 @@ class DataAugmentor:
                 continue
             if cur_cfg["NAME"] in NOT_PORTED:
                 raise NotImplementedError(
-                    f"DATA_AUGMENTOR {cur_cfg['NAME']} is used only by the KITTI and nuScenes "
-                    "configs, not ported yet (ROADMAP A11)")
+                    f"DATA_AUGMENTOR {cur_cfg['NAME']} is not ported yet (ROADMAP A11.5)")
             self.data_augmentor_queue.append(getattr(self, cur_cfg["NAME"])(config=cur_cfg))
 
     def random_world_flip(self, data_dict=None, config=None, rng=None):
@@ -59,6 +60,12 @@ class DataAugmentor:
             return partial(self.random_world_scaling, config=config)
         data_dict["noise_scale"] = augmentor_utils.global_scaling(
             data_dict, config["WORLD_SCALE_RANGE"], rng)
+        return data_dict
+
+    def random_world_translation(self, data_dict=None, config=None, rng=None):
+        if data_dict is None:
+            return partial(self.random_world_translation, config=config)
+        augmentor_utils.global_translation(data_dict, config["NOISE_TRANSLATE_STD"], rng)
         return data_dict
 
     def forward(self, data_dict, rng):

@@ -66,8 +66,8 @@ class DataProcessor:
         return self.transform_points_to_voxels_placeholder(data_dict, config, rng)
 
     def sample_points(self, data_dict=None, config=None, rng=None):
-        raise NotImplementedError("DATA_PROCESSOR sample_points is used only by the KITTI and "
-                                  "nuScenes configs, not ported yet (ROADMAP A11)")
+        raise NotImplementedError("DATA_PROCESSOR sample_points is not ported yet "
+                                  "(ROADMAP A11.5)")
 
     def forward(self, data_dict, rng):
         for cur_processor in self.data_processor_queue:

@@ -5,8 +5,13 @@ schema: 6 agents (the RSU, lidar id 0, and cars 1..5), object trajectories,
 per-agent LiDAR clouds, a town-based train/val split. Every draw comes from a
 generator seeded by an md5 hash of its key (``_rng_for``), so the same
 config gives the same world, point for point, in both packages.
-``NuScenesV2XSource`` (the real V2X-Sim 2.0 through the nuScenes devkit) is
-not ported yet: it raises, naming ROADMAP A11.
+``NuScenesV2XSource`` reads the real V2X-Sim 2.0 through the nuScenes devkit,
+or through any object with the devkit's table interface handed to it
+(``.sample`` and ``.scene`` lists, ``.get(table, token)``,
+``.get_sample_data_path(token)``). Its instance ids are
+``abs(hash(instance_token)) % 2**62``, the JAX package's rule: Python salts
+``hash`` of a string per process (``PYTHONHASHSEED``), so the ids agree only
+within one process (ROADMAP C).
 
 A "frame" returned by a source:
     points:        (N, 4) x, y, z, intensity, in the agent's lidar frame
@@ -24,7 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ...native import points_in_boxes_np
-from ...utils.geometry import make_se3, se3_inverse, apply_se3, wrap_angle
+from ...utils.geometry import apply_se3, make_se3, quat_to_rotmat, se3_inverse, wrap_angle
 
 KEYFRAME_DT = 0.2  # seconds between keyframes (V2X-Sim annotates at 5 Hz)
 NUM_AGENTS = 6  # lidar ids 0 (RSU) .. 5
@@ -546,9 +551,107 @@ def _points_in_boxes_np(points_xyz, boxes):
 
 
 class NuScenesV2XSource:
-    """The real V2X-Sim 2.0 through the nuScenes devkit: not ported yet."""
+    """The real V2X-Sim 2.0 through the nuScenes devkit, with the interface
+    of ``SyntheticV2XSource``. ``nusc``, a devkit ``NuScenes`` or an object
+    with its table interface, is used as given; without one the devkit is
+    imported and raises ImportError where it is absent."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "NuScenesV2XSource (real V2X-Sim data through the nuScenes devkit) is not ported "
-            "yet (ROADMAP A11); set DATA_CONFIG.USE_SYNTHETIC_DATA True")
+    def __init__(self, dataroot, version, nusc=None):
+        if nusc is not None:
+            self.nusc = nusc
+            return
+        try:
+            from nuscenes import NuScenes  # type: ignore
+        except ImportError as e:
+            raise ImportError(
+                "nuscenes-devkit is required for real V2X-Sim data; "
+                "use USE_SYNTHETIC_DATA: True otherwise"
+            ) from e
+        self.nusc = NuScenes(dataroot=str(dataroot), version=version, verbose=False)
+
+    def sample_record(self, sample_token):
+        return self.nusc.get("sample", sample_token)
+
+    def get_pose(self, lidar_token):
+        """glob_se3_lidar: the ego pose times the sensor's calibration."""
+        sd = self.nusc.get("sample_data", lidar_token)
+        cs = self.nusc.get("calibrated_sensor", sd["calibrated_sensor_token"])
+        ep = self.nusc.get("ego_pose", sd["ego_pose_token"])
+        glob_se3_ego = make_se3(ep["translation"], rotmat=quat_to_rotmat(ep["rotation"]))
+        ego_se3_sensor = make_se3(cs["translation"], rotmat=quat_to_rotmat(cs["rotation"]))
+        return glob_se3_ego @ ego_se3_sensor
+
+    def get_frame(self, lidar_token, classes_of_interest=("car", "pedestrian"),
+                  threshold_boxes_by_points=1, box_range=70.0):
+        """The frame of one lidar sample: its points, and the annotated boxes
+        of ``classes_of_interest`` (the current and the previous keyframe's,
+        a copy of the current where there is none before) in its lidar
+        frame, those with fewer than ``threshold_boxes_by_points`` points
+        dropped. ``box_range`` is not read, as in the JAX package."""
+        nusc = self.nusc
+        sd = nusc.get("sample_data", lidar_token)
+        points = np.fromfile(nusc.get_sample_data_path(lidar_token), dtype=np.float32)
+        points = points.reshape(-1, 5)[:, :4]
+
+        pose = self.get_pose(lidar_token)
+        inv_pose = se3_inverse(pose)
+
+        def box_of(anno):
+            rot = quat_to_rotmat(anno["rotation"])
+            yaw = np.arctan2(rot[1, 0], rot[0, 0])
+            return np.concatenate([anno["translation"], np.asarray(anno["size"])[[1, 0, 2]], [yaw]])
+
+        boxes, prev_boxes, names, iids = [], [], [], []
+        sample = nusc.get("sample", sd["sample_token"])
+        for anno_token in sample["anns"]:
+            anno = nusc.get("sample_annotation", anno_token)
+            name = _detection_name(anno["category_name"])
+            if name not in classes_of_interest:
+                continue
+            box_g = box_of(anno)
+            boxes.append(box_g)
+            prev_boxes.append(box_of(nusc.get("sample_annotation", anno["prev"])) if anno["prev"]
+                              else box_g.copy())
+            names.append(name)
+            iids.append(abs(hash(anno["instance_token"])) % (1 << 62))
+
+        if boxes:
+            boxes = apply_se3(inv_pose, boxes=np.asarray(boxes))
+            prev_boxes = apply_se3(inv_pose, boxes=np.asarray(prev_boxes))
+            names = np.asarray(names)
+            iids = np.asarray(iids)
+        else:
+            boxes = np.zeros((0, 7))
+            prev_boxes = np.zeros((0, 7))
+            names = np.zeros((0,), dtype="<U16")
+            iids = np.zeros((0,), dtype=np.int64)
+
+        box_idx = _points_in_boxes_np(points[:, :3], boxes)
+        counts = np.array([(box_idx == i).sum() for i in range(boxes.shape[0])], dtype=np.int64)
+        if threshold_boxes_by_points is not None and boxes.shape[0] > 0:
+            keep = counts >= threshold_boxes_by_points
+            remap = -np.ones(boxes.shape[0] + 1, dtype=np.int64)
+            remap[np.where(keep)[0]] = np.arange(keep.sum())
+            box_idx = np.where(box_idx >= 0, remap[box_idx], -1)
+            boxes, prev_boxes = boxes[keep], prev_boxes[keep]
+            names, iids, counts = names[keep], iids[keep], counts[keep]
+
+        return {
+            "points": points,
+            "boxes": boxes,
+            "prev_boxes": prev_boxes,
+            "names": names,
+            "instance_ids": iids,
+            "num_points_in_boxes": counts,
+            "box_idx_of_points": box_idx,
+            "glob_se3_lidar": pose,
+        }
+
+
+def _detection_name(category_name: str) -> str:
+    """The first of car, pedestrian, truck, bus, bicycle, motorcycle that
+    the category names, else the category itself."""
+    for key in ("car", "pedestrian", "truck", "bus", "bicycle", "motorcycle"):
+        if key in category_name:
+            return key
+    return category_name

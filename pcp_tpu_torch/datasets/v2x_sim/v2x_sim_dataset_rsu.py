@@ -4,10 +4,17 @@ Counterpart of ``pcp_tpu/datasets/v2x_sim/v2x_sim_dataset_rsu.py``: the
 town-based train/val split (towns 4 and 5 train, town 3 val), the infos,
 pseudo-sweep items, fixed-shape predictions to per-sample annotations, and
 the nuScenes-protocol evaluation keyed by lidar token. The data come from
-the synthetic world (``source.py``); the real V2X-Sim database raises,
-naming ROADMAP A11.
+the synthetic world (``source.py``), or from the real V2X-Sim database
+(present when ``{VERSION}/sample.json`` lies under the data root) through
+``NuScenesV2XSource``; a ``source`` handed in is used as given. On the real
+database :meth:`V2XSimDataset_RSU.build_v2x_sim_info` writes the split
+(``{prefix}_trainval_split.pkl``) and the info pickles
+(``{prefix}_v2x_sim_infos_{N}sweeps_{train,val}.pkl``, prefix ``mini`` or
+``full`` after the version) that the dataset reads back, semantic-lidar
+channels left out.
 """
 import copy
+import pickle
 from pathlib import Path
 
 import numpy as np
@@ -38,7 +45,8 @@ def synthetic_source(dataset_cfg):
 class V2XSimDataset_RSU(DatasetTemplate):
     LIDAR_IDS = (0,)
 
-    def __init__(self, dataset_cfg, class_names, training=True, root_path=None, logger=None):
+    def __init__(self, dataset_cfg, class_names, training=True, root_path=None, logger=None,
+                 source=None):
         root_path = Path(root_path) if root_path is not None else Path(dataset_cfg["DATA_PATH"])
         if not root_path.is_absolute():
             # the reference's paths (../data/v2x-sim, from tools/) are taken
@@ -49,6 +57,7 @@ class V2XSimDataset_RSU(DatasetTemplate):
             root_path = ROOT_DIR / stripped
         root_path = root_path / dataset_cfg["VERSION"]
         super().__init__(dataset_cfg, class_names, training, root_path, logger)
+        self._prefix = "mini" if "mini" in dataset_cfg["VERSION"] else "full"
 
         self.classes_of_interest = set(dataset_cfg.get("CLASSES_OF_INTEREST", ["car", "pedestrian"]))
         self.num_historical_sweeps = int(dataset_cfg.get("NUM_HISTORICAL_SWEEPS", 10))
@@ -57,7 +66,10 @@ class V2XSimDataset_RSU(DatasetTemplate):
 
         real_db_present = (self.root_path / dataset_cfg["VERSION"] / "sample.json").exists()
         self.synthetic = bool(dataset_cfg.get("USE_SYNTHETIC_DATA", False)) or not real_db_present
-        if self.synthetic:
+        if source is not None:
+            self.source = source
+            self.synthetic = isinstance(source, SyntheticV2XSource)
+        elif self.synthetic:
             self.source = synthetic_source(dataset_cfg)
             if logger is not None:
                 logger.info("V2X-Sim data not found -> synthetic V2X world active")
@@ -87,8 +99,15 @@ class V2XSimDataset_RSU(DatasetTemplate):
         return infos
 
     def include_v2x_sim_data(self, mode):
-        self._require_synthetic()
-        self.infos = self._build_infos_synthetic(self.dataset_cfg["DATA_SPLIT"][mode])
+        if self.synthetic:
+            self.infos = self._build_infos_synthetic(self.dataset_cfg["DATA_SPLIT"][mode])
+        else:
+            for info_path in self.dataset_cfg["INFO_PATH"][mode]:
+                p = self.root_path / f"{self._prefix}_{info_path}"
+                if p.exists():
+                    with open(p, "rb") as f:
+                        self.infos.extend(pickle.load(f))
+            self.infos = self._filter_sem(self.infos)
         self.infos.sort(key=lambda e: e["timestamp"])
         stride = int(self.dataset_cfg.get("MINI_TRAINVAL_STRIDE", 1))
         if self.training and stride > 1:
@@ -96,16 +115,94 @@ class V2XSimDataset_RSU(DatasetTemplate):
         if self.logger is not None:
             self.logger.info("Total samples for V2X-Sim dataset: %d" % len(self.infos))
 
-    def _require_synthetic(self):
-        if not self.synthetic:
-            raise NotImplementedError("the real V2X-Sim database's infos are not ported yet "
-                                      "(ROADMAP A11)")
+    def _filter_sem(self, infos):
+        """Leave out the semantic-lidar channels (a ``SEM`` in the channel
+        name)."""
+        if not hasattr(self.source, "nusc"):
+            return infos
+        kept = []
+        for info in infos:
+            try:
+                ch = self.source.nusc.get("sample_data", info["lidar_token"]).get("channel", "")
+            except (KeyError, AttributeError):
+                ch = ""
+            if "SEM" not in ch:
+                kept.append(info)
+        return kept
+
+    # ------------------------------------------------- raw-DB info building
+    def _build_train_val_split(self):
+        """The scene split by the log's town (4 and 5 train, else val),
+        written to ``{prefix}_trainval_split.pkl``; a mini version puts the
+        train scenes (or, lacking them, the val scenes) in both splits."""
+        nusc = self.source.nusc
+        train_scenes, val_scenes = [], []
+        for scene in nusc.scene:
+            log = nusc.get("log", scene["log_token"])
+            if log["location"] in (4, 5, "4", "5"):
+                train_scenes.append(scene["token"])
+            else:
+                val_scenes.append(scene["token"])
+        if "mini" not in self.dataset_cfg["VERSION"]:
+            trainval = {"train": set(train_scenes), "val": val_scenes}
+        else:
+            toks = train_scenes if train_scenes else val_scenes
+            trainval = {"train": set(toks), "val": toks}
+        path = self.root_path / f"{self._prefix}_trainval_split.pkl"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(trainval, f)
+        return trainval
+
+    def _load_trainval_split(self):
+        path = self.root_path / f"{self._prefix}_trainval_split.pkl"
+        if not path.exists():
+            return self._build_train_val_split()
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def _info_of_lidar_token(self, sample, lidar_token, threshold_boxes_by_points):
+        """One info: the lidar's pose, gt boxes, names and their point
+        counts in its own frame, its file and timestamp."""
+        nusc = self.source.nusc
+        frame = self.source.get_frame(lidar_token,
+                                      classes_of_interest=tuple(self.classes_of_interest),
+                                      threshold_boxes_by_points=threshold_boxes_by_points)
+        sd = nusc.get("sample_data", lidar_token)
+        return {"token": sample["token"],
+                "lidar_token": lidar_token,
+                "glob_se3_lidar": frame["glob_se3_lidar"],
+                "gt_boxes": frame["boxes"],
+                "gt_names": frame["names"],
+                "num_points_in_boxes": frame["num_points_in_boxes"],
+                "lidar_path": nusc.get_sample_data_path(lidar_token),
+                "timestamp": sd["timestamp"]}
 
     def build_v2x_sim_info(self):
-        """The info pickles of the real database: they need the nuScenes
-        devkit."""
-        raise NotImplementedError("building V2X-Sim info files needs the real database and the "
-                                  "nuScenes devkit, not ported yet (ROADMAP A11)")
+        """Write ``{prefix}_v2x_sim_infos_{N}sweeps_{train,val}.pkl`` of the
+        RSU's lidar (``LIDAR_TOP_id_0``), a split left out where it has no
+        sample; returns (train infos, val infos). Needs the real database or
+        an object with the devkit's interface."""
+        assert not self.synthetic, "info building needs a (possibly mocked) V2X-Sim DB"
+        trainval = self._load_trainval_split()
+        nusc = self.source.nusc
+        lidar_name = "LIDAR_TOP_id_0"
+        train_infos, val_infos = [], []
+        for sample in nusc.sample:
+            if lidar_name not in sample["data"]:
+                continue
+            info = self._info_of_lidar_token(sample, sample["data"][lidar_name],
+                                             self.dataset_cfg.get("THRESHOLD_BOXES_BY_POINTS", 5))
+            (train_infos if sample["scene_token"] in trainval["train"] else val_infos).append(info)
+        for split, infos in (("train", train_infos), ("val", val_infos)):
+            if not infos:
+                continue
+            p = self.root_path / f"{self._prefix}_v2x_sim_infos_{self.num_historical_sweeps}sweeps_{split}.pkl"
+            with open(p, "wb") as f:
+                pickle.dump(infos, f)
+            if self.logger is not None:
+                self.logger.info(f"v2x-sim infos {split}: {len(infos)} -> {p}")
+        return train_infos, val_infos
 
     def __len__(self):
         return len(self.infos)

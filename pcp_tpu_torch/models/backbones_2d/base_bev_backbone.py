@@ -149,7 +149,7 @@ class BaseBEVBackbone(nn.Module):
         upsample_strides = list(model_cfg.get("UPSAMPLE_STRIDES", []))
         num_upsample_filters = list(model_cfg.get("NUM_UPSAMPLE_FILTERS", []))
         if len(upsample_strides) > len(layer_nums):
-            raise NotImplementedError("BACKBONE_2D extra deblock is not ported yet (ROADMAP A11)")
+            raise NotImplementedError("BACKBONE_2D extra deblock is not ported yet (ROADMAP A11.3)")
 
         def norm(c):
             return nn.Identity() if folded else BatchNorm2d(c, eps=BN_EPS, momentum=0.01,

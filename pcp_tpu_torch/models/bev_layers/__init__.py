@@ -3,12 +3,13 @@ HunterJr corrector (serving and training), the oracle corrector, the
 distillation teacher, and DiscoNet's frozen BEV makers and mid fusion."""
 
 
-def build_corrector(cfg, info, num_bev_features):
+def build_corrector(cfg, info, num_bev_features, input_channels=None):
     from .hunter_jr import HunterJr
     from .oracle_corrector import OracleCorrector
 
     registry = {"HunterJr": HunterJr, "OracleCorrector": OracleCorrector}
-    return registry[cfg["NAME"]](model_cfg=cfg, info=info, num_bev_features=num_bev_features)
+    return registry[cfg["NAME"]](model_cfg=cfg, info=info, num_bev_features=num_bev_features,
+                                 input_channels=input_channels)
 
 
 def build_bev_maker(cfg, info, role):

@@ -144,7 +144,7 @@ class HunterObjectHead(nn.Module):
 
 
 class HunterJr(nn.Module):
-    def __init__(self, model_cfg, info, num_bev_features):
+    def __init__(self, model_cfg, info, num_bev_features, input_channels=None):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_sweeps = int(model_cfg["NUM_SWEEPS"])
@@ -159,7 +159,9 @@ class HunterJr(nn.Module):
         self.register_buffer("pc_range", torch.tensor(info.point_cloud_range, dtype=torch.float32),
                              persistent=False)
         c = num_bev_features  # the JAX package's width; CONV_INPUT_CHANNELS is not read
-        self.conv_input = conv_bn_relu(c, c)
+        # conv_input maps the backbone's width to the corrector's; they differ
+        # behind an SCConv backbone (the detector's docstring)
+        self.conv_input = conv_bn_relu(input_channels or c, c)
         self.point_head = HunterPointHead(c, tuple(model_cfg.get("POINT_HEAD_HIDDEN_CHANNELS", [])))
         self.object_head = HunterObjectHead(c, tuple(model_cfg.get("OBJ_HEAD_HIDDEN_CHANNELS", [])))
         self.conv_weightor = nn.Sequential(conv_bn_relu(2 * c, 2 * c),
@@ -176,9 +178,14 @@ class HunterJr(nn.Module):
         out["points_flow3d"] = flow3d
         if not self.training:
             return out
-        if "teacher_spatial_features_2d" in batch and "corrector_tb" in out:
-            out["corrector_tb"]["l_dtl_bev_img"] = self.teacher_diagnostic(
-                out["spatial_features_2d"], batch["teacher_spatial_features_2d"])
+        if "teacher_spatial_features_2d" in batch:
+            fused, teacher = out["spatial_features_2d"], batch["teacher_spatial_features_2d"]
+            if fused.shape != teacher.shape:
+                raise ValueError(f"the corrector's BEV {tuple(fused.shape)} and the teacher's "
+                                 f"{tuple(teacher.shape)} differ in shape: the JAX package "
+                                 "cannot train this config either (ROADMAP C)")
+            if "corrector_tb" in out:
+                out["corrector_tb"]["l_dtl_bev_img"] = self.teacher_diagnostic(fused, teacher)
         if "gt_boxes" in batch:
             # the reference drops gt outside the range before the dense head;
             # with static shapes their rows become zeros (class 0: ignored)
@@ -303,6 +310,10 @@ class HunterJr(nn.Module):
     @staticmethod
     def teacher_diagnostic(fused, teacher):
         """Smooth-L1 between the blended BEV and the teacher's, summed over
-        channels and averaged over the pixels where the teacher is not ~0."""
+        channels and averaged over the pixels where the teacher is not ~0.
+        The forward refuses a teacher whose BEV differs from the corrector's
+        in shape, as the JAX package's step fails on it: behind an SCConv
+        backbone the corrector is the scatter's width (64), the teacher's
+        BEV the backbone's (384) (ROADMAP C)."""
         tmask = torch.linalg.vector_norm(teacher, dim=1) > 1e-3
         return _masked_mean(smooth_l1(fused - teacher).sum(1), tmask)

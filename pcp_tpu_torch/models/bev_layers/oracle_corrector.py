@@ -15,7 +15,8 @@ from torch import nn
 
 
 class OracleCorrector(nn.Module):
-    def __init__(self, model_cfg, info=None, num_bev_features=0):
+    def __init__(self, model_cfg, info=None, num_bev_features=0, input_channels=None):
+        # num_bev_features and input_channels: HunterJr's, unused here
         super().__init__()
         self.sweep_col = int(model_cfg.get("META_POINTS_FEAT_LOCATION_SWEEP_IDX", -2))
         self.inst_col = int(model_cfg.get("META_POINTS_FEAT_LOCATION_INSTANCE_IDX", -1))

@@ -1,11 +1,18 @@
 """CenterPoint dense head.
 
 Counterpart of ``pcp_tpu/models/dense_heads/center_head.py``: a shared 3x3
-conv, then per class group a ``SeparateHead`` of conv towers (hm, center,
-center_z, dim, rot). In eval mode the forward ends in fixed-K decode and
-rotated NMS; in training it assigns gaussian targets to the gt boxes
-(``target_assigner.py``) for :meth:`CenterHead.get_loss` and does not decode
-(the JAX package decodes in training only for an ROI head, ROADMAP A11).
+conv, then per class group a ``SeparateHead`` of conv towers (hm and the
+``HEAD_DICT`` branches: center, center_z, dim, rot, and in the nuScenes
+configs vel and iou). In eval mode the forward ends in fixed-K decode and
+rotated NMS, the boxes carrying the velocity where the head predicts
+``vel``; with ``CALIB_CLS_SCORE`` the heatmap is calibrated by the predicted
+IoU, ``hm^(1 - alpha) * ((iou + 1) / 2)^alpha``, before the decode. In
+training it assigns gaussian targets to the gt boxes (``target_assigner.py``)
+for :meth:`CenterHead.get_loss` and does not decode (the JAX package decodes
+in training only for an ROI head, ROADMAP A11.6). Where ``HEAD_ORDER`` names
+``iou``, the last target column is the axis-aligned BEV IoU between each gt
+and the box decoded at its centre from the current predictions, taken
+without gradient, as ``2 IoU - 1`` (:meth:`CenterHead.pred_iou_at_gt`).
 Modules and names follow pcdet (``shared_conv.{0,1}``,
 ``heads_list.{h}.{branch}.{k}.{0,1}``, the branch's last conv at
 ``{num_conv - 1}``). Head BNs have eps 1e-5 and flax's
@@ -59,10 +66,6 @@ class CenterHead(nn.Module):
                  point_cloud_range, voxel_size, bf16=False):
         super().__init__()
         self.dtype = torch.bfloat16 if (bf16 or model_cfg.get("BF16", False)) else None
-        extra = set(model_cfg["SEPARATE_HEAD_CFG"]["HEAD_DICT"]) - {"center", "center_z", "dim", "rot"}
-        if extra or model_cfg["POST_PROCESSING"].get("CALIB_CLS_SCORE", False):
-            raise NotImplementedError(f"CenterHead branches {sorted(extra)} and CALIB_CLS_SCORE "
-                                      "are not ported yet (ROADMAP A11)")
         self.model_cfg = model_cfg
         self.num_class = num_class
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
@@ -98,23 +101,72 @@ class CenterHead(nn.Module):
             cap = int(self.model_cfg["TARGET_ASSIGNER_CONFIG"]["NUM_MAX_OBJS"])
             gt = batch["gt_boxes"][:, :cap]  # pad or trim to NUM_MAX_OBJS
             gt = F.pad(gt, (0, 0, 0, cap - gt.shape[1]))
-            out["head_targets"] = self.assign_targets(gt, feat_w=x.shape[3], feat_h=x.shape[2])
+            out["head_targets"] = self.assign_targets(gt, feat_w=x.shape[3], feat_h=x.shape[2],
+                                                      pred_dicts=pred_dicts)
         else:
             out["final_box_dicts"] = self.generate_predicted_boxes(pred_dicts)
         return out
 
-    def assign_targets(self, gt_boxes, feat_w, feat_h):
-        """gt_boxes (B, NUM_MAX_OBJS, 8), zero rows for padding. Returns per
-        head {heatmap (B, H, W, C), target_boxes, inds, mask}."""
+    def pred_iou_at_gt(self, pred, gt_boxes, feat_w, feat_h):
+        """(B, M) IoU target of one head: the box decoded from ``pred`` (its
+        branches (B, C, H, W), without gradient) at each gt's centre cell
+        against the gt, both as the axis-aligned BEV rectangles around
+        their rotated footprints, as ``2 IoU - 1``; 0 IoU where the union
+        is empty."""
+        dev = gt_boxes.device
+        vox = torch.tensor(self.voxel_size[:2], dtype=torch.float32, device=dev)
+        rng = torch.tensor(self.point_cloud_range[:2], dtype=torch.float32, device=dev)
+        stride = torch.tensor(float(self.feature_map_stride), dtype=torch.float32, device=dev)
+        coord = (gt_boxes[..., 0:2] - rng) / vox / stride
+        px = coord[..., 0].clamp(0, feat_w - 0.5).to(torch.int64)
+        py = coord[..., 1].clamp(0, feat_h - 0.5).to(torch.int64)
+        idx = py * feat_w + px
+
+        def at(name):  # (B, M, C) of the branch at each gt's cell
+            t = pred[name].detach()
+            flat = t.reshape(t.shape[0], t.shape[1], -1)
+            return torch.gather(flat, 2, idx[:, None, :].expand(-1, t.shape[1], -1)).transpose(1, 2)
+
+        center, dim, rot = at("center"), torch.exp(at("dim")), at("rot")
+        bx = (center[..., 0] + px) * stride * vox[0] + rng[0]
+        by = (center[..., 1] + py) * stride * vox[1] + rng[1]
+        ang = torch.atan2(rot[..., 1], rot[..., 0])
+
+        def aabb(x, y, dx, dy, yaw):
+            c, s = torch.abs(torch.cos(yaw)), torch.abs(torch.sin(yaw))
+            ex, ey = c * dx / 2 + s * dy / 2, s * dx / 2 + c * dy / 2
+            return x - ex, y - ey, x + ex, y + ey
+
+        p = aabb(bx, by, dim[..., 0], dim[..., 1], ang)
+        g = aabb(gt_boxes[..., 0], gt_boxes[..., 1], gt_boxes[..., 3], gt_boxes[..., 4],
+                 gt_boxes[..., 6])
+        iw = torch.clamp(torch.minimum(p[2], g[2]) - torch.maximum(p[0], g[0]), min=0.0)
+        ih = torch.clamp(torch.minimum(p[3], g[3]) - torch.maximum(p[1], g[1]), min=0.0)
+        inter = iw * ih
+
+        def area(r):
+            return torch.clamp(r[2] - r[0], min=0.0) * torch.clamp(r[3] - r[1], min=0.0)
+
+        union = area(p) + area(g) - inter
+        iou = torch.where(union > 0, inter / torch.clamp(union, min=1e-9), 0.0)
+        return 2.0 * iou - 1.0
+
+    def assign_targets(self, gt_boxes, feat_w, feat_h, pred_dicts=None):
+        """gt_boxes (B, NUM_MAX_OBJS, 8 + E), zero rows for padding. Returns
+        per head {heatmap (B, H, W, C), target_boxes, inds, mask}; with
+        ``pred_dicts`` and ``iou`` in ``HEAD_ORDER`` the IoU target is the
+        last target column."""
         ta = self.model_cfg["TARGET_ASSIGNER_CONFIG"]
+        with_iou = pred_dicts is not None and "iou" in self.model_cfg["SEPARATE_HEAD_CFG"]["HEAD_ORDER"]
         targets = []
         for idx, mapping in enumerate(self.class_id_mapping_each_head):
+            iou_t = self.pred_iou_at_gt(pred_dicts[idx], gt_boxes, feat_w, feat_h) if with_iou else None
             hm, boxes, inds, mask = assign_targets_single_head(
                 gt_boxes, getattr(self, f"head_class_map_{idx}"), num_classes=len(mapping),
                 feat_w=feat_w, feat_h=feat_h, stride=self.feature_map_stride,
                 pc_range=self.point_cloud_range, voxel_size=self.voxel_size,
                 gaussian_overlap=float(ta["GAUSSIAN_OVERLAP"]), min_radius=int(ta["MIN_RADIUS"]),
-                num_max_objs=int(ta["NUM_MAX_OBJS"]))
+                num_max_objs=int(ta["NUM_MAX_OBJS"]), iou_target=iou_t)
             targets.append({"heatmap": hm, "target_boxes": boxes, "inds": inds, "mask": mask})
         return targets
 
@@ -145,17 +197,23 @@ class CenterHead(nn.Module):
 
     def generate_predicted_boxes(self, pred_dicts):
         """pred_dicts: per head, {branch: (B, C, H, W)}. Returns fixed-shape
-        pred_boxes (B, heads*POST, 7), pred_scores, pred_labels (1-based),
-        pred_valid."""
+        pred_boxes (B, heads*POST, 7, or 9 with ``vel``), pred_scores,
+        pred_labels (1-based), pred_valid."""
         pp = self.model_cfg["POST_PROCESSING"]
         nms_cfg = pp["NMS_CONFIG"]
+        alpha = float(pp.get("CALIB_CLS_SCORE_ALPHA", 0.5))
         all_boxes, all_scores, all_labels, all_valid = [], [], [], []
         for idx, pred in enumerate(pred_dicts):
             pred = {k: v.permute(0, 2, 3, 1) for k, v in pred.items()}  # JAX layout
+            hm = torch.sigmoid(pred["hm"])
+            if pp.get("CALIB_CLS_SCORE", False) and "iou" in pred:
+                iou = torch.clamp((pred["iou"] + 1.0) / 2.0, 0.0, 1.0)
+                hm = torch.pow(hm, 1.0 - alpha) * torch.pow(iou, alpha)
             decoded = decode_bbox_from_heatmap(
-                heatmap=torch.sigmoid(pred["hm"]), rot_cos=pred["rot"][..., 0:1],
+                heatmap=hm, rot_cos=pred["rot"][..., 0:1],
                 rot_sin=pred["rot"][..., 1:2], center=pred["center"], center_z=pred["center_z"],
-                dim=torch.exp(pred["dim"]), point_cloud_range=self.point_cloud_range,
+                dim=torch.exp(pred["dim"]), vel=pred.get("vel"),
+                point_cloud_range=self.point_cloud_range,
                 voxel_size=self.voxel_size, feature_map_stride=self.feature_map_stride,
                 k=int(pp["MAX_OBJ_PER_SAMPLE"]), score_thresh=float(pp["SCORE_THRESH"]),
                 post_center_limit_range=pp["POST_CENTER_LIMIT_RANGE"])

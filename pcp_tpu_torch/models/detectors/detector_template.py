@@ -9,8 +9,13 @@ distillation ``teacher``, ``vfe``, the sparse ``backbone_3d`` (SECOND),
 ``map_to_bev``, ``backbone_2d``, the ``corrector`` (HunterJr or the oracle),
 DiscoNet's ``v2x_mid_fusion`` and the ``dense_head``. The width the 2D
 backbone reads is ``MAP_TO_BEV.NUM_BEV_FEATURES`` (for ``HeightCompression``
-the 3D backbone's 128 channels times its 2 z slices). Any other MODEL key
-raises naming its ROADMAP item. ``MODEL.BF16`` and the backbone's
+the 3D backbone's 128 channels times its 2 z slices). The corrector's width
+is the JAX package's rule: the backbone's upsampled or last filters, and
+for a backbone that names neither (the SCConv backbones) the scatter's
+width, so that behind ``SCConvBackbone2dStride4`` HunterJr maps 384 channels
+to 64 and the head reads 64. ``MODEL.OracleCorrector`` (the nuScenes oracle
+config) is read by no module of the JAX package, and by none here. Any other
+MODEL key raises naming its ROADMAP item. ``MODEL.BF16`` and the backbone's
 ``FOLD_BN`` and ``W_PACK`` are refused on a model with a sparse 3D backbone
 or an anchor head (ROADMAP A11.1b).
 """
@@ -27,7 +32,7 @@ MODULE_KEYS = (tuple((key, key.lower()) for key in MAKER_KEYS)
                   ("BACKBONE_2D", "backbone_2d"), ("CORRECTOR", "corrector"),
                   ("V2X_MID_FUSION", "v2x_mid_fusion"), ("DENSE_HEAD", "dense_head")))
 # MODEL keys that configure no module
-PLAIN_KEYS = ("NAME", "POST_PROCESSING", "BF16")
+PLAIN_KEYS = ("NAME", "POST_PROCESSING", "BF16", "OracleCorrector")
 # MODEL keys of the JAX package's other models and the ROADMAP item that
 # holds each
 NOT_PORTED_KEYS = {"PFE": "A11.6", "POINT_HEAD": "A11.6", "ROI_HEAD": "A11.6"}
@@ -115,14 +120,20 @@ class Detector3DTemplate(nn.Module):
             self.add_module("map_to_bev", build_map_to_bev(cfg["MAP_TO_BEV"], info))
             names.append("map_to_bev")
             num_bev_features = int(cfg["MAP_TO_BEV"]["NUM_BEV_FEATURES"])
+        corrector_width = num_bev_features
         if cfg.get("BACKBONE_2D") is not None:
-            backbone = build_backbone_2d(cfg["BACKBONE_2D"], num_bev_features, bf16=bf16)
+            bcfg = cfg["BACKBONE_2D"]
+            backbone = build_backbone_2d(bcfg, num_bev_features, bf16=bf16)
             self.add_module("backbone_2d", backbone)
             names.append("backbone_2d")
             num_bev_features = backbone.num_bev_features
+            ups, filters = list(bcfg.get("NUM_UPSAMPLE_FILTERS", [])), list(bcfg.get("NUM_FILTERS", []))
+            corrector_width = sum(ups) if ups else (filters[-1] if filters else corrector_width)
         if cfg.get("CORRECTOR") is not None:
-            self.add_module("corrector", build_corrector(cfg["CORRECTOR"], info, num_bev_features))
+            self.add_module("corrector", build_corrector(cfg["CORRECTOR"], info, corrector_width,
+                                                         input_channels=num_bev_features))
             names.append("corrector")
+            num_bev_features = corrector_width
         if cfg.get("V2X_MID_FUSION") is not None:
             self.add_module("v2x_mid_fusion",
                             build_v2x_fusion(cfg["V2X_MID_FUSION"], info, num_bev_features))

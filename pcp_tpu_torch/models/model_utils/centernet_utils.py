@@ -92,13 +92,14 @@ def topk_heatmap(scores, k):
 
 
 def decode_bbox_from_heatmap(heatmap, rot_cos, rot_sin, center, center_z, dim,
-                             point_cloud_range, voxel_size, feature_map_stride, k=500,
+                             point_cloud_range, voxel_size, feature_map_stride, vel=None, k=500,
                              score_thresh=None, post_center_limit_range=None):
     """Top-k boxes from head outputs, all (B, H, W, ·). Returns pred_boxes
-    (B, k, 7), pred_scores (B, k), pred_labels (B, k), valid (B, k)."""
+    (B, k, 7), or (B, k, 9) with ``vel`` (vx, vy appended), pred_scores
+    (B, k), pred_labels (B, k), valid (B, k)."""
     b, h, w, nc = heatmap.shape
     k = min(k, h * w)
-    stacked = [center, rot_sin, rot_cos, center_z, dim]
+    stacked = [center, rot_sin, rot_cos, center_z, dim] + ([] if vel is None else [vel])
     widths = [f.shape[-1] for f in stacked]
     flat = torch.cat([f.reshape(b, h * w, f.shape[-1]) for f in stacked], dim=-1)
 
@@ -110,12 +111,12 @@ def decode_bbox_from_heatmap(heatmap, rot_cos, rot_sin, center, center_z, dim,
     else:
         scores, inds, class_ids, ys, xs = topk_heatmap(heatmap, k)
     gathered = torch.gather(flat, 1, inds[..., None].expand(-1, -1, flat.shape[-1]))
-    center, rot_sin, rot_cos, center_z, dim = torch.split(gathered, widths, dim=-1)
+    center, rot_sin, rot_cos, center_z, dim, *rest = torch.split(gathered, widths, dim=-1)
 
     angle = torch.atan2(rot_sin, rot_cos)
     xs = (xs[..., None] + center[..., 0:1]) * feature_map_stride * voxel_size[0] + point_cloud_range[0]
     ys = (ys[..., None] + center[..., 1:2]) * feature_map_stride * voxel_size[1] + point_cloud_range[1]
-    boxes = torch.cat([xs, ys, center_z, dim, angle], dim=-1)
+    boxes = torch.cat([xs, ys, center_z, dim, angle, *rest], dim=-1)
 
     valid = torch.ones((b, k), dtype=torch.bool, device=heatmap.device)
     if post_center_limit_range is not None:

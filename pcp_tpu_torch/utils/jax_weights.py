@@ -29,6 +29,9 @@ by leaf against the JAX package's.
     BN at 3i+1
   * AnchorHeadSingle's Dense ``conv_cls`` / ``conv_box`` / ``conv_dir_cls``
     kernel (in, out) -> the 1x1 Conv2d weight (out, in, 1, 1)
+  * an SCConv backbone's ``{conv, norm}`` pairs -> SCNet's names
+    (``backbone_2d.stem.3.scconv.k2.1.weight``, ...;
+    ``models/backbones_2d/sc_conv_backbone.py``)
   * a sparse conv kernel (K * Cin, Cout), K in ``kernel_offsets`` order
     (z, y, x) -> spconv 2.x's (Cout, kz, ky, kx, Cin) under pcdet's names of
     the SECOND backbone (``backbone_3d.conv_input.0.weight``,
@@ -129,6 +132,12 @@ def _vfe(sd, vfe_p, vfe_s, vcfg, prefix=""):
 
 
 def _backbone(sd, bb_p, bb_s, bcfg, prefix=""):
+    if bcfg["NAME"].startswith("SCConvBackbone2d"):
+        return _sc_backbone(sd, bb_p, bb_s, f"{prefix}backbone_2d")
+    _base_backbone(sd, bb_p, bb_s, bcfg, prefix)
+
+
+def _base_backbone(sd, bb_p, bb_s, bcfg, prefix=""):
     """The backbone's blocks; a block without ``norm`` (``fold_bn_variables``'s
     output) is a biased conv, whose BN slot holds no tensor. Packed kernels
     (``w_pack_variables``) map as any other."""
@@ -148,6 +157,34 @@ def _backbone(sd, bb_p, bb_s, bcfg, prefix=""):
             else:
                 _put_conv(sd, f"{base}.0", bb_p[blk]["conv"])
             put_bn(f"{base}.1", blk)
+
+
+def _sc_backbone(sd, bp, bs, base):
+    """An SCConv backbone: the JAX package's ``{conv, norm}`` pairs under
+    the names of ``models/backbones_2d/sc_conv_backbone.py``."""
+    def conv_bn(jax_name, conv, bn, p=bp, s=bs):
+        _put_conv(sd, conv, p[jax_name]["conv"])
+        _put_bn(sd, bn, p[jax_name]["norm"], _sub(_sub(s, jax_name), "norm"))
+
+    def bottleneck(jax_name, key):
+        p, s = bp[jax_name], _sub(bs, jax_name)
+        for branch in ("a", "b"):
+            conv_bn(f"conv1_{branch}", f"{key}.conv1_{branch}", f"{key}.bn1_{branch}", p, s)
+        conv_bn("k1", f"{key}.k1.0", f"{key}.k1.1", p, s)
+        conv_bn("conv3", f"{key}.conv3", f"{key}.bn3", p, s)
+        sp, ss = p["scconv"], _sub(s, "scconv")
+        conv_bn("k2", f"{key}.scconv.k2.1", f"{key}.scconv.k2.2", sp, ss)
+        for k in ("k3", "k4"):
+            conv_bn(k, f"{key}.scconv.{k}.0", f"{key}.scconv.{k}.1", sp, ss)
+
+    for jax_name, key in (("stem_conv", "stem"), ("conv_skip", "conv_skip"),
+                          ("main_down", "main"), ("conv_out", "conv_out")):
+        conv_bn(jax_name, f"{base}.{key}.0", f"{base}.{key}.1")
+    for i in range(3):
+        bottleneck(f"stem_sc{i}", f"{base}.stem.{3 + i}")
+        bottleneck(f"main_sc{i}", f"{base}.main.{3 + i}")
+    _put_conv(sd, f"{base}.main.6", bp["main_up"]["deconv"], _deconv)
+    _put_bn(sd, f"{base}.main.7", bp["main_up"]["norm"], _sub(_sub(bs, "main_up"), "norm"))
 
 
 def _head(sd, hd_p, hd_s, hcfg):

@@ -15,7 +15,8 @@
   EXCHANGE_MODAR False, which appends no MoDAR row);
 * the loader: the same seed gives the same batches with 0 and 2 workers;
 * the exchange generator writes files for both splits;
-* what is not ported raises, naming its ROADMAP item.
+* what is not ported raises, naming its ROADMAP item; the real V2X-Sim
+  source without the devkit raises ImportError, as the JAX package's.
 """
 import copy
 
@@ -312,11 +313,13 @@ def test_not_ported_raise_naming_their_item():
     from pcp_tpu_torch.datasets.v2x_sim.source import NuScenesV2XSource
 
     _, tcfg = cfg_pair("v2x_sim_dataset_ego_early")
-    for name in ("KittiDataset", "NuScenesDataset", "CustomDataset"):
+    for name in ("KittiDataset", "CustomDataset"):
         tcfg.DATASET = name
         with pytest.raises(NotImplementedError, match="A11"):
             build_dataloader(tcfg, ["car"], batch_size=1, training=False, workers=0)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # the real V2X-Sim source is ported; without the devkit, and without a
+    # database handed to it, it raises as the JAX package's does
+    with pytest.raises(ImportError, match="nuscenes-devkit"):
         NuScenesV2XSource("data", "v2.0-trainval")
     with pytest.raises(NotImplementedError, match="A11"):
         DataAugmentor(None, {"DISABLE_AUG_LIST": [], "AUG_CONFIG_LIST": [{"NAME": "gt_sampling"}]},

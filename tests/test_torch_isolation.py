@@ -20,6 +20,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pcp_tpu")
+# absent on the card's machine: the map rasters are numpy alone
+MAP_FREE = ("cv2", "matplotlib", "nuscenes")
 SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "pcp_tpu_torch").rglob("*.py"))
 SOURCES += sorted(str(p.relative_to(REPO)) for p in (REPO / "tools_torch").glob("*.py"))
 SOURCES.append("chip_smoke.py")
@@ -47,6 +49,9 @@ def test_fresh_interpreter_loads_no_jax():
         "import pcp_tpu_torch.tools.train, pcp_tpu_torch.tools.test\n"
         "import pcp_tpu_torch.workspace.v2x_gen_exchange_database\n"
         "import pcp_tpu_torch.workspace.collect_results\n"
+        "import pcp_tpu_torch.datasets.nuscenes.nuscenes_dataset\n"
+        "import pcp_tpu_torch.datasets.nuscenes.info_builder, pcp_tpu_torch.datasets.nuscenes.temporal_utils\n"
+        "cfg, info, model = build('tools/cfgs/nuscenes_models/pointpillar_jr_corr_withmap.yaml', device='cpu')\n"
         "from pcp_tpu_torch import native\n"
         "from pcp_tpu_torch.config import CfgDict, cfg_from_yaml_file\n"
         "from pcp_tpu_torch.datasets import build_dataloader\n"
@@ -56,7 +61,7 @@ def test_fresh_interpreter_loads_no_jax():
         "ds[0]\n"
         "assert native._LIB is not None and native.library_path().parent == native.BUILD_DIR\n"
         "assert native.BUILD_DIR.parts[-3:] == ('pcp_tpu_torch', 'native', 'build'), native.BUILD_DIR\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + MAP_FREE!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -94,8 +99,10 @@ def test_entry_defaults_to_gpu_and_raises_without_one():
 
 
 def test_iou_head_branch_raises_naming_a11():
-    """The head's ``iou`` branch (and its calibration target) is not ported;
-    ``build_network`` says so rather than training without it."""
+    """The head's ``iou`` branch and its calibration target, refused naming
+    A11 until they were ported, now build: the ego with the branch added
+    assigns targets that end in the IoU column, 2 IoU - 1 of each valid gt
+    (held against the JAX package in ``test_torch_jr.py``)."""
     from pcp_tpu_torch.entry import CFG_EGO
     from pcp_tpu_torch.config import CfgDict, cfg_from_yaml_file
     from pcp_tpu_torch.models import DatasetInfo, build_network
@@ -104,5 +111,12 @@ def test_iou_head_branch_raises_naming_a11():
     cfg.MODEL.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_DICT["iou"] = {"out_channels": 1, "num_conv": 2}
     cfg.MODEL.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_ORDER.append("iou")
     info = DatasetInfo.from_data_cfg(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_network(cfg.MODEL, num_class=1, dataset_info=info, device="cpu")
+    head = build_network(cfg.MODEL, num_class=1, dataset_info=info, device="cpu").dense_head
+    cap = int(cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS)
+    gt = torch.zeros((1, cap, 8))
+    gt[0, 0] = torch.tensor([-50.0, -50.0, -1.0, 4.0, 2.0, 1.6, 0.3, 1.0])
+    preds = [{k: torch.zeros((1, c, 16, 16)) for k, c in
+              (("center", 2), ("center_z", 1), ("dim", 3), ("rot", 2), ("iou", 1))}]
+    target = head.assign_targets(gt, feat_w=16, feat_h=16, pred_dicts=preds)[0]
+    assert target["target_boxes"].shape == (1, cap, 9) and target["mask"][0, 0]
+    assert -1.0 <= target["target_boxes"][0, 0, -1].item() <= 1.0
