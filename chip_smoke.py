@@ -186,11 +186,13 @@ a11. (after phase 9) the anchor-head PointPillar car
    convs, post-processing) and peak memory; A11_TRAIN_STEPS steps on one
    batch (launches as in the forward, every loss finite, the last under the
    first), the step's time, split, stages and peak memory, and a b1 step
-   against the CPU held as phase 5 holds the ego's (the RSU, whose model is
-   the car's, leaves out both CPU checks). Then the CLIs on the SMOKE world
-   in ``build/a11``, loading in the main process: the anchor car, the SECOND
-   car and the SECOND RSU trained 2 epochs, both SECOND senders broadcast
-   into ``exchange_database_second``, the SECOND ego trained on it and
+   against the CPU held as phase 5 holds the ego's (the SECOND car leaves
+   out the step's; the RSU, whose model is the car's, runs only in the CLI
+   stages; see A11_MODELS). Then the CLIs on the SMOKE world in
+   ``build/a11``, loading in the main process: the anchor car, the SECOND
+   car and the SECOND RSU trained A11_CLI_EPOCHS epochs, both SECOND
+   senders broadcast into ``exchange_database_second``, the SECOND ego
+   trained on it and
    evaluated (its items must carry MoDAR rows from there); each stage's
    seconds and launches.
 
@@ -226,6 +228,26 @@ jr. (after a11) the nuScenes "pointpillar_jr" family at full width on the
    V2X-Sim database through ``NuScenesV2XSource``, the split, RSU and car
    info pickles, and one car forward on the card from them.
 
+kitti. (after jr) KITTI data and PointRCNN (``kitti_models/pointrcnn.yaml``)
+   at full width: a fake KITTI tree in ``build/kitti`` (four training and
+   two validation frames of about 24000 returns, two or three objects of
+   each class, ``tests/torch_fake_kitti.py``), its infos and gt database
+   through ``create_kitti_infos``; the b2 x 16384 validation batch's eval
+   forward (no kernel of the five launched: PointRCNN has no pillar VFE;
+   proposals and boxes finite); b1 card against CPU (FPS and ball-query
+   indices equal, the point features and scores and the ROI stage on the
+   card's proposals within KITTI_TOL or 3x the CPU's 8-vs-4-thread spread,
+   the surviving boxes under the margin rule, the proposal and the final
+   NMS's kept indices equal on the card's own inputs); the forward's time,
+   stages (backbone_3d, point_head, proposal_layer, roi_head,
+   post_processing) and peak memory; KITTI_TRAIN_STEPS train steps on a
+   training batch with gt_sampling, each loss finite, their times and peak
+   memory, the last on jittered gt boxes handed in as ROIs (foreground for
+   the ROI head's reg and corner losses; the reg tower's gradient nonzero
+   and finite); then the train CLI for one epoch with gt_sampling and the test
+   CLI's KITTI AP table. Phase a11's CLI stages train one epoch each
+   (A11_CLI_EPOCHS; two until this phase came).
+
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
 ``"sender_train"``, the trained ego's under ``"trained_ego"``, the bench's
@@ -236,7 +258,10 @@ each a11 model's forward, train step and CLI stage under
 ``"launches_per_a11_forward"``, ``"launches_per_a11_train_step"`` and
 ``"launches_in_a11_cli"``, and in each JR model's forward, train step and
 CLI stage under ``"launches_per_jr_forward"``, ``"..._jr_train_step"`` and
-``"launches_in_jr_cli"``, phase jr's record under ``"jr"``; in each pipeline stage under
+``"launches_in_jr_cli"``, phase jr's record under ``"jr"``; in PointRCNN's
+forward, train step and CLI stages under ``"launches_per_kitti_forward"``,
+``"launches_per_kitti_train_step"`` and ``"launches_in_kitti_cli"``, phase
+kitti's record under ``"kitti"``; in each pipeline stage under
 ``"launches_in_pipeline"``, in a DiscoNet eval forward and train step under
 ``"launches_per_disco_eval_forward"`` and ``"..._train_step"``, in a
 serving mode's forward under ``"launches_per_serving_forward"``, in a
@@ -273,8 +298,12 @@ PC_RANGE = (-51.2, -51.2)
 VOXEL = 0.2
 
 
+START = time.perf_counter()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One line ``[phase] seconds since the script started | msg``."""
+    print(f"[{phase}] {time.perf_counter() - START:.1f} s | {msg}", flush=True)
 
 
 def realistic_points(rng, b, n, num_features, n_pillars=4096):
@@ -3017,14 +3046,19 @@ def phase_disco(seed, boxflow_bytes=None):
 CFGS = REPO / "tools" / "cfgs" / "v2x_sim_models"
 # (name, config, points a cloud, the kernel launches its forward and step
 # must show: B1 once for the pillar VFE, nothing for the sparse voxel path,
-# whether the card is held against the CPU). The SECOND RSU's MODEL is the
-# SECOND car's (its config differs in the dataset and the learning rate),
-# so its card-vs-CPU checks, 30 s of CPU, are the car's and are left out
-A11_MODELS = (("anchor_car", CFGS / "v2x_pointpillar_anchor_car.yaml", SENDER_N, 1, True),
-              ("second_car", CFGS / "v2x_second_car.yaml", SENDER_N, 0, True),
-              ("second_rsu", CFGS / "v2x_second_rsu.yaml", SENDER_N, 0, False),
-              ("second_ego", CFGS / "v2x_second_ego.yaml", N, 0, True))
+# which of its b1 forward and b1 train step are held against the CPU). The
+# SECOND RSU's MODEL is the SECOND car's (its config differs in the dataset
+# and the learning rate), so it runs here only through its CLI stages,
+# which train it and broadcast from it. The SECOND car's b1 step against
+# the CPU (25 s of CPU and 40 s more at half the threads) is left out: its
+# parts are each held in a step elsewhere, the SECOND backbones and
+# CenterHead by the SECOND ego's, the corrector by phase 7's senders
+A11_MODELS = (
+    ("anchor_car", CFGS / "v2x_pointpillar_anchor_car.yaml", SENDER_N, 1, ("forward", "step")),
+    ("second_car", CFGS / "v2x_second_car.yaml", SENDER_N, 0, ("forward",)),
+    ("second_ego", CFGS / "v2x_second_ego.yaml", N, 0, ("forward", "step")))
 A11_TRAIN_STEPS = 4  # the loss curve: steps on one batch, the last under the first
+A11_CLI_EPOCHS = 1  # epochs of each CLI training stage (2 until phase kitti came)
 # the share of the anchor car's anchors that the seeded weights score above
 # SCORE_THRESH (``balance_anchor_bias``): 32768 anchors a cloud, so about
 # 6500, more than NMS_PRE_MAXSIZE 4096
@@ -3207,7 +3241,7 @@ def run_a11_model(name, cfg_path, n, b1_launches, against_cpu, seed):
         record["bev_scatter_max"] = b1_on_inputs("a11", f"{name}: the forward's", feats, pids, h, w)
         del seen, feats, pids
     pp = cfg.MODEL.DENSE_HEAD.get("POST_PROCESSING") or cfg.MODEL.POST_PROCESSING
-    if against_cpu:
+    if "forward" in against_cpu:
         record["card_vs_cpu"] = (
             _sender_card_vs_cpu(name, cfg_path, sd, model, host, pp,
                                 int(pp.NMS_CONFIG.NMS_POST_MAXSIZE), phase="a11") if sender
@@ -3266,7 +3300,7 @@ def run_a11_model(name, cfg_path, n, b1_launches, against_cpu, seed):
                + f"; peak memory allocated {peak} bytes ({peak / 2**30:.3f} GiB); training forward "
                "stages (median ms of 3): " + ", ".join(f"{k} {v:.6f}" for k, v in stages.items()))
 
-    if against_cpu:  # one b1 step from the seeded weights, card against CPU
+    if "step" in against_cpu:  # one b1 step from the seeded weights, card against CPU
         one = {k: v[:1] for k, v in host_train.items()}
         gpu, cpu, cpu_half, cpu_s = card_and_cpu_steps(model, cfg_path, cfg, sd, one)
         limits, loose = hold_to_cpu_spread("a11", f"{name}: ", gpu, cpu, cpu_half,
@@ -3284,7 +3318,7 @@ A11_EXCHANGE = "exchange_database_second"
 
 def _a11_stages(root):
     """(name, kind, CLI main, argv) of phase a11's CLI stages: the anchor car,
-    the SECOND car and the SECOND RSU trained PIPELINE_EPOCHS epochs, both
+    the SECOND car and the SECOND RSU trained A11_CLI_EPOCHS epochs, both
     SECOND senders broadcast into ``exchange_database_second`` (their
     default database, under a data root in ``root``), the SECOND ego trained
     on it and evaluated."""
@@ -3299,12 +3333,12 @@ def _a11_stages(root):
 
     def ckpt(cfg):
         return str(root / "cfgs" / "v2x_sim_models" / cfg / "smoke" / "ckpt"
-                   / f"checkpoint_epoch_{PIPELINE_EPOCHS}.pth")
+                   / f"checkpoint_epoch_{A11_CLI_EPOCHS}.pth")
 
     def train(name, cfg, ratio):
         return (name, "train", train_cli.main,
                 ["--cfg_file", PIPELINE_CFGS.format(cfg), *base, "--extra_tag", "smoke",
-                 "--epochs", str(PIPELINE_EPOCHS), "--num_epochs_to_eval", "0", "--set", *common,
+                 "--epochs", str(A11_CLI_EPOCHS), "--num_epochs_to_eval", "0", "--set", *common,
                  "DATA_CONFIG.DATASET_DOWNSAMPLING_RATIO", str(ratio), "OPTIMIZATION.LR", "0.003"])
 
     def gen(agent):
@@ -3866,6 +3900,342 @@ def phase_jr(seed):
     record["a11_2"] = a11_2_check(seed, build_dir / "v2x_sim")
     return forward, step, record
 
+
+# ------------------------------------------------------------ kitti. KITTI data and PointRCNN
+
+CFG_KITTI_DATA = "tools/cfgs/dataset_configs/kitti_dataset.yaml"
+# the fake KITTI tree of tests/torch_fake_kitti.py: four training frames
+# (two train steps at the config's b2 through the CLI) and two validation
+# frames, each of about 24000 returns of which some 17000 fall in the
+# camera's field of view (sample_points keeps 16384)
+KITTI_TRAIN_IDS = ("000000", "000001", "000002", "000003")
+KITTI_VAL_IDS = ("000004", "000005")
+KITTI_POINTS = 24000
+KITTI_TRAIN_STEPS = 2  # steps on one batch, each loss finite
+# the last step's ROIs are handed in: this many jittered copies of each gt
+# box (centre 0.2 m, sizes 5%, heading 0.1 rad), so that foreground ROIs
+# train the ROI head's reg and corner losses, which the seeded first stage's
+# proposals never reach
+KITTI_ROI_COPIES = 8
+# card against CPU, b1 eval, (atol, rtol) of each tensor, held to at least
+# SPREAD_FACTOR x the CPU's own spread between 8 and 4 threads; the ROI
+# stage runs on the card's proposals on both sides
+KITTI_TOL = {"point_features": (1e-4, 1e-4), "point_cls_preds": (1e-4, 1e-4),
+             "batch_cls_preds": (1e-4, 1e-4), "batch_box_preds": (1e-4, 1e-4)}
+
+
+class record_indices:
+    """Within the block, every FPS and ball-query result of the port's
+    PointNet++ ops and every NMS's kept indices, on the CPU, in call order."""
+
+    def __enter__(self):
+        from pcp_tpu_torch.models.detectors import pointpillar
+        from pcp_tpu_torch.models.roi_heads import roi_head_template
+        from pcp_tpu_torch.ops import pointnet2 as pn2
+
+        self.seen = {"fps": [], "ball_query": [], "nms": []}
+        self.saved = [(pn2, "farthest_point_sample"), (pn2, "ball_query"),
+                      (roi_head_template, "class_agnostic_nms"), (pointpillar, "class_agnostic_nms")]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.saved]
+        for mod, name, fn in self.saved:
+            key = {"farthest_point_sample": "fps", "ball_query": "ball_query"}.get(name, "nms")
+
+            def wrapped(*args, _fn=fn, _key=key, **kwargs):
+                out = _fn(*args, **kwargs)
+                self.seen[_key].append(out[0].cpu() if isinstance(out, tuple) else out.cpu())
+                return out
+
+            setattr(mod, name, wrapped)
+        return self.seen
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def kitti_stages(model, cfg):
+    from pcp_tpu_torch.models.detectors.pointpillar import generic_post_processing
+    from pcp_tpu_torch.models.roi_heads.roi_head_template import proposal_layer
+
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    return [("backbone_3d", model.backbone_3d), ("point_head", model.point_head),
+            ("proposal_layer", lambda d: proposal_layer(d, nms_cfg)),
+            ("roi_head", model.roi_head),
+            ("post_processing", lambda d: dict(d, final_box_dicts=generic_post_processing(
+                cfg.MODEL, d)))]
+
+
+def _kitti_cpu(sd, cfg_path, host, threads):
+    """A CPU copy of the model on ``host`` (the card's proposals handed in)
+    at ``threads`` threads: its outputs and the indices it drew."""
+    from pcp_tpu_torch.entry import build
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        _, _, cpu = build(cfg_path, device="cpu")
+        cpu.load_state_dict(sd, strict=True)
+        with torch.inference_mode(), record_indices() as seen:
+            out = cpu(host)
+    finally:
+        torch.set_num_threads(before)
+    return out, seen
+
+
+def _kitti_card_vs_cpu(model, sd, cfg_path, batch, cfg):
+    """b1 card against CPU: FPS and ball-query indices equal, the point
+    features and scores within KITTI_TOL (or SPREAD_FACTOR x the CPU's
+    spread), the ROI stage on the card's proposals within KITTI_TOL, the
+    surviving boxes under the margin rule; the proposal and the final NMS
+    exact on the card's own inputs."""
+    from pcp_tpu_torch.ops.nms import class_agnostic_nms
+    from pcp_tpu_torch.utils.box_match import match_surviving_boxes
+
+    b1 = {k: v[:1] for k, v in batch.items()}
+    with torch.inference_mode(), record_indices() as gpu_seen:
+        gpu = model(b1)
+    pins = ("rois", "roi_scores", "roi_labels", "roi_valid")
+    host = {k: v.cpu() for k, v in b1.items()}
+    host.update({k: gpu[k].cpu() for k in pins}, has_class_labels=True)
+    t0 = time.perf_counter()
+    cpu, cpu_seen = _kitti_cpu(sd, cfg_path, host, 8)
+    cpu_s = time.perf_counter() - t0
+    cpu4, _ = _kitti_cpu(sd, cfg_path, host, 4)
+    for kind in ("fps", "ball_query"):
+        if len(gpu_seen[kind]) != len(cpu_seen[kind]) or not all(
+                torch.equal(g, c) for g, c in zip(gpu_seen[kind], cpu_seen[kind])):
+            raise AssertionError(f"kitti: {kind} indices differ between the card and the CPU")
+    rec = {"cpu_seconds": cpu_s, "fps_calls": len(gpu_seen["fps"]),
+           "ball_query_calls": len(gpu_seen["ball_query"])}
+    for key, (atol, rtol) in KITTI_TOL.items():
+        g, c, c4 = gpu[key].cpu(), cpu[key], cpu4[key]
+        spread = (c - c4).abs().max().item()
+        err = (g - c).abs().max().item()
+        limit = max(atol + rtol * c.abs().max().item(), SPREAD_FACTOR * spread)
+        rec[key] = {"max_abs_err": err, "cpu_spread": spread, "limit": limit,
+                    "max_abs": c.abs().max().item()}
+        if not err <= limit:
+            raise AssertionError(f"kitti: {key} card vs CPU {err} over {limit} ({rec[key]})")
+    pp = cfg.MODEL.POST_PROCESSING
+    got = {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()}
+    want = {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()}
+    rec["boxes_matched"] = match_surviving_boxes(
+        got, want, heat_scores=np.zeros(0), top_k=1, score_thresh=float(pp.SCORE_THRESH),
+        post_max=int(pp.NMS_CONFIG.NMS_POST_MAXSIZE), margin=1e-4, box_atol=1e-3,
+        box_rtol=1e-4, score_atol=1e-4, min_matched=1)
+    # the NMS's kept indices on one set of inputs, on the card and on the
+    # CPU: the card's proposals (the point head's boxes) and its final boxes
+    with torch.inference_mode():
+        ph = model.point_head(model.backbone_3d(b1))
+    nms_in = ((ph["batch_box_preds"], torch.sigmoid(ph["batch_cls_preds"]).max(-1).values,
+               ph["batch_pred_valid"], cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST, None),
+              (gpu["batch_box_preds"], torch.sigmoid(gpu["batch_cls_preds"]).max(-1).values,
+               gpu["batch_pred_valid"], pp.NMS_CONFIG, float(pp.SCORE_THRESH)))
+    kept = []
+    for boxes, sc, valid, nms_cfg, thresh in nms_in:
+        on_card = class_agnostic_nms(boxes, sc, valid, nms_cfg, score_thresh=thresh)[0].cpu()
+        on_cpu = class_agnostic_nms(boxes.cpu(), sc.cpu(), valid.cpu(), nms_cfg,
+                                    score_thresh=thresh)[0]
+        if not torch.equal(on_card, on_cpu):
+            raise AssertionError("kitti: NMS kept indices differ between the card and the CPU")
+        kept.append(int((on_card >= 0).sum()))
+    rec["nms_kept"] = kept
+    return rec
+
+
+def jittered_gt_rois(gt_boxes, seed):
+    """ROIs about the batch's gt boxes (B, G, 8): KITTI_ROI_COPIES jittered
+    copies of each, zero rows for padding, with scores and 1-based labels.
+    ``proposal_layer`` passes ROIs handed in with the batch on."""
+    g = torch.Generator().manual_seed(seed)
+    gt = gt_boxes.cpu().repeat_interleave(KITTI_ROI_COPIES, 1)
+    real = gt[..., 7] > 0
+    noise = torch.randn(gt[..., :7].shape, generator=g)
+    rois = torch.cat([gt[..., 0:3] + 0.2 * noise[..., 0:3],
+                      gt[..., 3:6] * torch.exp(0.05 * noise[..., 3:6]),
+                      gt[..., 6:7] + 0.1 * noise[..., 6:7]], -1)
+    rois = torch.where(real[..., None], rois, 0.0)
+    scores = torch.where(real, torch.rand(real.shape, generator=g), 0.0)
+    labels = torch.where(real, gt[..., 7].long(), 0)
+    dev = gt_boxes.device
+    return {"rois": rois.to(dev), "roi_scores": scores.to(dev), "roi_labels": labels.to(dev)}
+
+
+def kitti_cli(root, data, seed):
+    """The CLI stages on the fake tree: the train CLI for one epoch with
+    gt_sampling, then the test CLI's KITTI AP table. Returns the record."""
+    from pcp_tpu_torch.entry import CFG_POINTRCNN
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.tools import test as test_cli
+    from pcp_tpu_torch.tools import train as train_cli
+
+    common = ["--cfg_file", CFG_POINTRCNN, "--batch_size", "2", "--device", "cuda", "--workers",
+              "0", "--output_root", str(root), "--extra_tag", "smoke"]
+    sets = ["--set", "DATA_CONFIG.DATA_PATH", str(data)]
+    ckpt = root / "cfgs" / "kitti_models" / "pointrcnn" / "smoke" / "ckpt" / "checkpoint_epoch_1.pth"
+    record = {}
+    for name, main_fn, argv in (
+            ("train_pointrcnn", train_cli.main,
+             common + ["--epochs", "1", "--seed", str(seed), "--num_epochs_to_eval", "0",
+                       "--precise_bn", "0"] + sets),
+            ("eval_pointrcnn", test_cli.main, common + ["--ckpt", str(ckpt)] + sets)):
+        bs.reset_launches()
+        t0 = time.perf_counter()
+        out = main_fn(argv)
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0, "launches": dict(bs.launches)}
+        if any(rec["launches"].values()):
+            raise AssertionError(f"kitti {name}: kernel launches {rec['launches']}")
+        if name.startswith("train"):
+            rec.update(steps=out["steps"], step_ms=out["step_ms_median"], losses=out["losses"])
+            if out["steps"] != len(KITTI_TRAIN_IDS) // 2 or not np.isfinite(out["losses"]).all():
+                raise AssertionError(f"kitti {name}: {out['steps']} steps, losses {out['losses']}")
+            detail = (f"{out['steps']} steps with gt_sampling, median step "
+                      f"{out['step_ms_median']:.6f} ms, losses "
+                      + " ".join(f"{v:.6f}" for v in out["losses"]))
+        else:
+            keys = [k for k in out if k.endswith("_R40")] + ["recall/rcnn_0.7"]
+            rec.update({k: float(out[k]) for k in keys})
+            if len(keys) != 37 or not all(np.isfinite(rec[k]) for k in keys):
+                raise AssertionError(f"kitti {name}: results {rec}")
+            detail = ", ".join(f"{k} {rec[k]:.6f}" for k in keys if "moderate" in k)
+        record[name] = rec
+        log("kitti", f"{name}: {rec['seconds']:.3f} s; {detail}; kernel launches {rec['launches']}")
+    return record
+
+
+def phase_kitti(seed):
+    """Phase kitti: KITTI infos and the gt database on a fake tree through
+    the port's builder, PointRCNN at full width on the card (eval forward,
+    stages, train steps, b1 against the CPU), and the CLI stages. Returns
+    (launches of each kernel in a forward and in a train step, the record)."""
+    import shutil
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_fake_kitti import make_kitti_tree
+
+    from pcp_tpu_torch.datasets import build_dataloader
+    from pcp_tpu_torch.datasets.kitti import kitti_dataset
+    from pcp_tpu_torch.entry import CFG_POINTRCNN, build
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state
+    from pcp_tpu_torch.train.train_utils import _to_device_batch
+
+    root = REPO / "build" / "kitti"
+    shutil.rmtree(root, ignore_errors=True)
+    data = make_kitti_tree(root / "data", KITTI_TRAIN_IDS, KITTI_VAL_IDS, KITTI_POINTS, seed)
+    t0 = time.perf_counter()
+    kitti_dataset.main(["create_kitti_infos", CFG_KITTI_DATA, "--data_path", str(data)])
+    record = {"create_kitti_infos_seconds": time.perf_counter() - t0,
+              "gt_database_objects": len(list((data / "gt_database").glob("*.bin")))}
+    cfg, info, model = build(CFG_POINTRCNN, device="cuda",
+                             set_cfgs=["DATA_CONFIG.DATA_PATH", str(data)])
+    sd = seeded_state_dict(model, seed)
+    model.load_state_dict(sd, strict=True)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=b,
+                                    training=False, workers=0)
+    batch = _to_device_batch(next(iter(loader)), torch.device("cuda"))
+    n = batch["points"].shape[1]
+    zero = {k: 0 for k in bs.launches}
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(batch)
+        torch.cuda.synchronize()
+        counts = dict(bs.launches)
+    fbd = out["final_box_dicts"]
+    log("kitti", f"KITTI infos and {record['gt_database_objects']} gt database objects in "
+                 f"{record['create_kitti_infos_seconds']:.3f} s; PointRCNN, one b{b} x {n} "
+                 f"forward at full width: kernel launches {counts}; proposals "
+                 f"{tuple(out['rois'].shape)}, valid {out['roi_valid'].sum(1).tolist()}; boxes "
+                 f"{tuple(fbd['pred_boxes'].shape)}, valid per cloud {fbd['pred_valid'].sum(1).tolist()}")
+    want_n = next(int(p["NUM_POINTS"]["test"]) for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+                  if p["NAME"] == "sample_points")
+    if counts != zero or not torch.isfinite(fbd["pred_boxes"]).all() \
+            or not fbd["pred_valid"].any(1).all() or n != want_n:
+        raise AssertionError(f"kitti: launches {counts}, or boxes not finite or missing, or {n} points")
+    record.update({"config": CFG_POINTRCNN, "batch": b, "points": n, "forward_launches": counts})
+
+    rec = _kitti_card_vs_cpu(model, sd, CFG_POINTRCNN, batch, cfg)
+    log("kitti", "b1 card against CPU: FPS ({fps_calls} calls) and ball-query ({ball_query_calls}) "
+                 "indices equal; the proposal and the final NMS's kept indices ({nms_kept}) equal "
+                 "on the card's inputs; ".format(**rec)
+        + "; ".join(f"{k} {rec[k]['max_abs_err']:.3e} (CPU spread {rec[k]['cpu_spread']:.3e}, "
+                    f"limit {rec[k]['limit']:.3e})" for k in KITTI_TOL)
+        + f"; {rec['boxes_matched']} boxes matched; the CPU's forward {rec['cpu_seconds']:.3f} s")
+    record["card_vs_cpu"] = rec
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(batch), warmup=0, iters=3)  # warm: the counted forward
+        stages = stage_ms(kitti_stages(model, cfg), batch, iters=1)
+    peak = torch.cuda.max_memory_allocated()
+    record.update(forward_ms=fwd_ms, stages_ms=stages, forward_peak_bytes=peak)
+    log("kitti", f"forward b{b} x {n}: {fwd_ms:.6f} ms; stages "
+                 + ", ".join(f"{k} {v:.6f}" for k, v in stages.items())
+                 + f" ms; peak memory {peak / 2**30:.3f} GiB")
+
+    _, train_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=b,
+                                          training=True, workers=0, seed=seed)
+    train_batch = _to_device_batch(next(iter(train_loader)), torch.device("cuda"))
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=KITTI_TRAIN_STEPS,
+                                   total_epochs=1)
+    create_train_state(model, optimizer, seed)
+    model.load_state_dict(sd, strict=True)
+    from pcp_tpu_torch.models.roi_heads import pointrcnn_head
+
+    given = dict(train_batch, **jittered_gt_rois(train_batch["gt_boxes"], seed))
+    drawn, assign = [], pointrcnn_head.assign_targets
+    pointrcnn_head.assign_targets = lambda *a, **k: drawn.append(assign(*a, **k)) or drawn[-1]
+    losses, step_ms, peaks, tbs = [], [], [], []
+    bs.reset_launches()
+    try:
+        for i in range(KITTI_TRAIN_STEPS):  # make_train_step's step, its peaks read between
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            optimizer.zero_grad(set_to_none=True)
+            out = model(given if i == KITTI_TRAIN_STEPS - 1 else train_batch)
+            forward_peak = torch.cuda.max_memory_allocated()
+            out["loss"].backward()
+            optimizer.step()
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(out["loss"].item())
+            peaks.append((forward_peak, torch.cuda.max_memory_allocated()))
+            tbs.append({k: v.item() for k, v in out["tb_dict"].items()})
+    finally:
+        pointrcnn_head.assign_targets = assign
+    step_counts = dict(bs.launches)
+    gt = int((train_batch["gt_boxes"][..., 7] > 0).sum())
+    reg_fg = [int(t["reg_valid_mask"].sum()) for t in drawn]
+    reg_grad = max(p.grad.abs().max().item() for p in model.roi_head.reg_layers.parameters())
+    record.update(train_losses=losses, train_step_ms=step_ms, train_peak_bytes=peaks,
+                  train_gt_boxes=gt, train_tb=tbs, train_reg_foreground=reg_fg,
+                  train_reg_grad_max=reg_grad)
+    log("kitti", f"{KITTI_TRAIN_STEPS} train steps on one b{b} batch with gt_sampling ({gt} gt "
+                 f"boxes), the last on {KITTI_ROI_COPIES} jittered copies of each gt box as its "
+                 f"ROIs: losses {' '.join(f'{v:.6f}' for v in losses)}, step ms "
+                 f"{' '.join(f'{v:.6f}' for v in step_ms)}, peak memory (forward+loss, step) "
+                 + ", ".join(f"{f / 2**30:.3f} / {t / 2**30:.3f} GiB" for f, t in peaks)
+                 + f"; kernel launches {step_counts}; foreground ROIs for the reg loss {reg_fg}, "
+                 f"the reg tower's largest |g| {reg_grad:.6e} in the last step; terms of each step "
+                 + " | ".join(", ".join(f"{k} {v:.6f}" for k, v in t.items()) for t in tbs))
+    if step_counts != zero or not np.isfinite(losses).all():
+        raise AssertionError(f"kitti: train launches {step_counts}, losses {losses}")
+    last = tbs[-1]
+    if not (reg_fg[-1] > 0 and last["rcnn_loss_reg"] > 0 and last["rcnn_loss_corner"] > 0
+            and 0 < reg_grad < float("inf")):
+        raise AssertionError(f"kitti: the step on given ROIs trained no reg tower: foreground "
+                             f"{reg_fg}, terms {last}, reg |g| {reg_grad}")
+    del model, out, optimizer
+    torch.cuda.empty_cache()
+    record["cli"] = kitti_cli(root, data, seed)
+    return counts, step_counts, record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3943,6 +4313,13 @@ def main(argv=None):
         record["launches_in_jr_cli"] = {name: rec["launches"][kernel]
                                         for name, rec in jr["cli"].items()
                                         if name.startswith("eval_")}
+    kitti_forward, kitti_step, kitti = phase_kitti(args.seed)
+    lap("kitti")
+    for kernel, record in records.items():
+        record["launches_per_kitti_forward"] = kitti_forward[kernel]
+        record["launches_per_kitti_train_step"] = kitti_step[kernel]
+        record["launches_in_kitti_cli"] = {name: rec["launches"][kernel]
+                                           for name, rec in kitti["cli"].items()}
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
     print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
@@ -3950,7 +4327,7 @@ def main(argv=None):
                       "bench_profile": bench["profile"], "serving": serving, "dp": dp,
                       "bf16_train": bf16,
                       "disco": disco, "pipeline": pipeline, "a11": a11, "jr": jr,
-                      "phase_seconds": seconds}))
+                      "kitti": kitti, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

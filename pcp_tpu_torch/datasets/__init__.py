@@ -1,10 +1,12 @@
 """Host-side data of the port: counterpart of ``pcp_tpu/datasets``.
 
 The registry holds the V2X-Sim RSU and car datasets, the ego's lately,
-early, late and mid (DiscoNet) fusion datasets and the plain nuScenes
-dataset; KITTI and custom data come with ROADMAP A11.7.
+early, late and mid (DiscoNet) fusion datasets, the plain nuScenes dataset,
+KITTI and the self-labelled custom dataset.
 """
+from .custom.custom_dataset import CustomDataset
 from .dataset import DatasetTemplate
+from .kitti.kitti_dataset import KittiDataset
 from .loader import DataLoader
 from .nuscenes.nuscenes_dataset import NuScenesDataset
 from .v2x_sim.v2x_sim_dataset_car import V2XSimDataset_CAR
@@ -23,8 +25,9 @@ __all__ = {
     "V2XSimDataset_EGO_LATE": V2XSimDataset_EGO_LATE,
     "V2XSimDataset_EGO_DISCO": V2XSimDataset_EGO_DISCO,
     "NuScenesDataset": NuScenesDataset,
+    "KittiDataset": KittiDataset,
+    "CustomDataset": CustomDataset,
 }
-NOT_PORTED = {"KittiDataset": "A11.7", "CustomDataset": "A11.7"}
 
 
 def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, workers=4,
@@ -36,8 +39,6 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, worke
     (``loader.py``). ``source`` (a V2X-Sim RSU or car dataset's) replaces
     the one the config names."""
     name = dataset_cfg["DATASET"]
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP {NOT_PORTED[name]})")
     extra = {} if source is None else {"source": source}
     dataset = __all__[name](dataset_cfg=dataset_cfg, class_names=class_names,
                             root_path=root_path, training=training, logger=logger, **extra)

@@ -4,10 +4,9 @@
 Each ``AUG_CONFIG_LIST`` entry not in ``DISABLE_AUG_LIST`` becomes a step
 applied in order, drawing from the sample's ``np.random.RandomState``. The
 V2X configs use the world flip, rotation and scaling, the nuScenes configs
-also the world translation; the local, frustum and pyramid augmentations and
-``gt_sampling`` (whose database of the nuScenes configs is not in the
-repository: the CLIs put it in ``DISABLE_AUG_LIST``) raise, naming ROADMAP
-A11.5.
+also the world translation, the KITTI configs ``gt_sampling``
+(``database_sampler.py``) before the world steps; the local, frustum and
+pyramid augmentations raise, naming ROADMAP A11.5.
 """
 from functools import partial
 
@@ -17,7 +16,7 @@ from . import augmentor_utils
 
 NOT_PORTED = ("random_local_translation", "random_local_rotation",
               "random_local_scaling", "random_world_frustum_dropout",
-              "random_local_frustum_dropout", "random_local_pyramid_aug", "gt_sampling")
+              "random_local_frustum_dropout", "random_local_pyramid_aug")
 
 
 class DataAugmentor:
@@ -67,6 +66,12 @@ class DataAugmentor:
             return partial(self.random_world_translation, config=config)
         augmentor_utils.global_translation(data_dict, config["NOISE_TRANSLATE_STD"], rng)
         return data_dict
+
+    def gt_sampling(self, config=None):
+        from .database_sampler import DataBaseSampler
+
+        return DataBaseSampler(root_path=self.root_path, sampler_cfg=config,
+                               class_names=self.class_names, logger=self.logger)
 
     def forward(self, data_dict, rng):
         for cur_augmentor in self.data_augmentor_queue:

@@ -3,8 +3,9 @@
 
 The config's ``DATA_PROCESSOR`` steps run in order on each sample dict. The
 V2X configs use three: the range mask, the shuffle and the voxelization
-placeholder (grid bookkeeping only: the VFE voxelizes on the device). A step
-that draws takes the sample's ``np.random.RandomState``.
+placeholder (grid bookkeeping only: the VFE voxelizes on the device);
+PointRCNN's adds ``sample_points``. A step that draws takes the sample's
+``np.random.RandomState``.
 """
 from functools import partial
 
@@ -66,8 +67,38 @@ class DataProcessor:
         return self.transform_points_to_voxels_placeholder(data_dict, config, rng)
 
     def sample_points(self, data_dict=None, config=None, rng=None):
-        raise NotImplementedError("DATA_PROCESSOR sample_points is not ported yet "
-                                  "(ROADMAP A11.5)")
+        """``NUM_POINTS[mode]`` points (-1: all): from a larger cloud every
+        point past 40 m and a draw of the near ones (or a draw of all, where
+        the far ones alone are enough), from a smaller one every point and a
+        draw with replacement, then shuffled; the draws in the JAX package's
+        order."""
+        if data_dict is None:
+            return partial(self.sample_points, config=config)
+        num_points = config["NUM_POINTS"][self.mode]
+        if num_points == -1:
+            return data_dict
+        points = data_dict["points"]
+        if num_points < len(points):
+            pts_near_flag = np.linalg.norm(points[:, 0:3], axis=1) < 40.0
+            far_idxs_choice = np.where(pts_near_flag == 0)[0]
+            near_idxs = np.where(pts_near_flag == 1)[0]
+            if num_points > len(far_idxs_choice):
+                near_idxs_choice = rng.choice(near_idxs, num_points - len(far_idxs_choice),
+                                              replace=False)
+                choice = (np.concatenate((near_idxs_choice, far_idxs_choice), axis=0)
+                          if len(far_idxs_choice) > 0 else near_idxs_choice)
+            else:
+                choice = rng.choice(np.arange(0, len(points), dtype=np.int32), num_points,
+                                    replace=False)
+            rng.shuffle(choice)
+        else:
+            choice = np.arange(0, len(points), dtype=np.int32)
+            if num_points > len(points):
+                extra_choice = rng.choice(choice, num_points - len(points), replace=True)
+                choice = np.concatenate((choice, extra_choice), axis=0)
+            rng.shuffle(choice)
+        data_dict["points"] = points[choice]
+        return data_dict
 
     def forward(self, data_dict, rng):
         for cur_processor in self.data_processor_queue:

@@ -15,7 +15,10 @@ whose last column is the agent, with ``se3_from_ego_arr`` (B, 6, 4, 4) and
 with AnchorHeadSingle) takes 7-feature points; SECOND (``CFG_SECOND_CAR``,
 ``CFG_SECOND_RSU``: the sparse voxel backbone with HunterJr, 7-feature
 points; ``CFG_SECOND_EGO``: 13-feature points with MoDAR rows) returns what
-the pillar models of the same role return. The model is in eval mode with
+the pillar models of the same role return. PointRCNN (``CFG_POINTRCNN``)
+takes KITTI's 4-feature points (``MAX_POINTS_PER_SAMPLE`` 16384, the
+``sample_points`` count) and returns the refined boxes with the ROI stage's
+class labels. The model is in eval mode with
 initial weights; load trained ones with ``model.load_state_dict`` (see
 ``utils/jax_weights.py``).
 
@@ -43,6 +46,8 @@ CFG_ANCHOR_CAR = "tools/cfgs/v2x_sim_models/v2x_pointpillar_anchor_car.yaml"
 CFG_SECOND_CAR = "tools/cfgs/v2x_sim_models/v2x_second_car.yaml"
 CFG_SECOND_RSU = "tools/cfgs/v2x_sim_models/v2x_second_rsu.yaml"
 CFG_SECOND_EGO = "tools/cfgs/v2x_sim_models/v2x_second_ego.yaml"
+# PointRCNN on KITTI
+CFG_POINTRCNN = "tools/cfgs/kitti_models/pointrcnn.yaml"
 
 
 def build(cfg_path=CFG_EGO, device="cuda", pre_reduce=None, set_cfgs=None):

@@ -1,9 +1,11 @@
+from .pointnet2_backbone import PointNet2MSG
 from .spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
 
-__all__ = {"VoxelBackBone8x": VoxelBackBone8x, "VoxelResBackBone8x": VoxelResBackBone8x}
+__all__ = {"VoxelBackBone8x": VoxelBackBone8x, "VoxelResBackBone8x": VoxelResBackBone8x,
+           "PointNet2MSG": PointNet2MSG}
 
 # the JAX package's other 3D backbones and the ROADMAP item that holds each
-NOT_PORTED = {"UNetV2": "A11.6", "PointNet2MSG": "A11.6", "PillarBackBone8x": "A11.6",
+NOT_PORTED = {"UNetV2": "A11.6", "PillarBackBone8x": "A11.6",
               "PillarRes18BackBone8x": "A11.6", "VoxelBackBone8xFocal": "A11.6"}
 
 

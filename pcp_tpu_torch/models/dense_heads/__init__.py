@@ -4,7 +4,7 @@ from .center_head import CenterHead
 __all__ = {"AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead}
 
 # the JAX package's other dense heads and the ROADMAP item that holds each
-NOT_PORTED = {"AnchorHeadMulti": "A11.4", "PointHeadSimple": "A11.6", "PointHeadBox": "A11.6",
+NOT_PORTED = {"AnchorHeadMulti": "A11.4", "PointHeadSimple": "A11.6",
               "PointIntraPartOffsetHead": "A11.6"}
 
 

@@ -2,14 +2,16 @@ from .centerpoint import CenterPoint
 from .detector_template import DatasetInfo, Detector3DTemplate
 from .obj_discoverer import ObjectDiscoverer
 from .pointpillar import PointPillar, SECONDNet
+from .pointrcnn import PointRCNN
 from .v2x_late_fusion import V2XLateFusion
 
 __all__ = {"CenterPoint": CenterPoint, "ObjectDiscoverer": ObjectDiscoverer,
-           "PointPillar": PointPillar, "SECONDNet": SECONDNet, "V2XLateFusion": V2XLateFusion}
+           "PointPillar": PointPillar, "PointRCNN": PointRCNN, "SECONDNet": SECONDNet,
+           "V2XLateFusion": V2XLateFusion}
 
 # the JAX package's other detectors and the ROADMAP item that holds each
 NOT_PORTED = {"PillarNet": "A11.6", "CaDDN": "A11.6", "MPPNet": "A11.6", "MPPNetE2E": "A11.6",
-              "PartA2": "A11.6", "PartA2Net": "A11.6", "PointRCNN": "A11.6", "PVRCNN": "A11.6",
+              "PartA2": "A11.6", "PartA2Net": "A11.6", "PVRCNN": "A11.6",
               "PVRCNNPlusPlus": "A11.6", "SECONDNetIoU": "A11.6", "VoxelRCNN": "A11.6"}
 
 

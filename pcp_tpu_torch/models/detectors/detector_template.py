@@ -7,7 +7,9 @@ dict through them in the JAX package's order: DiscoNet's frozen BEV makers
 (``bev_maker_rsu``, ``bev_maker_car``, ``bev_maker_early``), the
 distillation ``teacher``, ``vfe``, the sparse ``backbone_3d`` (SECOND),
 ``map_to_bev``, ``backbone_2d``, the ``corrector`` (HunterJr or the oracle),
-DiscoNet's ``v2x_mid_fusion`` and the ``dense_head``. The width the 2D
+DiscoNet's ``v2x_mid_fusion``, the ``dense_head``, and PointRCNN's
+``point_head`` and ``roi_head`` behind its point backbone (PointNet2MSG,
+which reads the raw points where no VFE precedes it). The width the 2D
 backbone reads is ``MAP_TO_BEV.NUM_BEV_FEATURES`` (for ``HeightCompression``
 the 3D backbone's 128 channels times its 2 z slices). The corrector's width
 is the JAX package's rule: the backbone's upsampled or last filters, and
@@ -30,12 +32,13 @@ MODULE_KEYS = (tuple((key, key.lower()) for key in MAKER_KEYS)
                + (("TEACHER", "teacher"), ("VFE", "vfe"), ("BACKBONE_3D", "backbone_3d"),
                   ("MAP_TO_BEV", "map_to_bev"),
                   ("BACKBONE_2D", "backbone_2d"), ("CORRECTOR", "corrector"),
-                  ("V2X_MID_FUSION", "v2x_mid_fusion"), ("DENSE_HEAD", "dense_head")))
+                  ("V2X_MID_FUSION", "v2x_mid_fusion"), ("DENSE_HEAD", "dense_head"),
+                  ("POINT_HEAD", "point_head"), ("ROI_HEAD", "roi_head")))
 # MODEL keys that configure no module
 PLAIN_KEYS = ("NAME", "POST_PROCESSING", "BF16", "OracleCorrector")
 # MODEL keys of the JAX package's other models and the ROADMAP item that
 # holds each
-NOT_PORTED_KEYS = {"PFE": "A11.6", "POINT_HEAD": "A11.6", "ROI_HEAD": "A11.6"}
+NOT_PORTED_KEYS = {"PFE": "A11.6"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +83,9 @@ class Detector3DTemplate(nn.Module):
         from ..backbones_3d import build_backbone_3d
         from ..bev_layers import build_bev_maker, build_corrector, build_teacher, build_v2x_fusion
         from ..dense_heads import build_dense_head
+        from ..dense_heads.point_head import build_point_head
         from ..map_to_bev import build_map_to_bev
+        from ..roi_heads import build_roi_head
         from ..vfe import build_vfe
 
         cfg, info = self.model_cfg, self.dataset_info
@@ -112,10 +117,15 @@ class Detector3DTemplate(nn.Module):
         if cfg.get("VFE") is not None:
             self.add_module("vfe", build_vfe(cfg["VFE"], info))
             names.append("vfe")
+        num_point_features = info.num_point_features
         if cfg.get("BACKBONE_3D") is not None:
+            if cfg.get("VFE") is not None:
+                num_point_features = self.vfe.num_point_features
             self.add_module("backbone_3d", build_backbone_3d(cfg["BACKBONE_3D"],
-                                                             self.vfe.num_point_features))
+                                                             num_point_features))
             names.append("backbone_3d")
+            num_point_features = getattr(self.backbone_3d, "num_point_features",
+                                         num_point_features)
         if cfg.get("MAP_TO_BEV") is not None:
             self.add_module("map_to_bev", build_map_to_bev(cfg["MAP_TO_BEV"], info))
             names.append("map_to_bev")
@@ -143,4 +153,13 @@ class Detector3DTemplate(nn.Module):
                                                            num_bev_features, self.num_class,
                                                            bf16=bf16))
             names.append("dense_head")
+        if cfg.get("POINT_HEAD") is not None:
+            self.add_module("point_head", build_point_head(
+                cfg["POINT_HEAD"], num_point_features, self.num_class,
+                predict_boxes_when_training=cfg.get("ROI_HEAD") is not None))
+            names.append("point_head")
+        if cfg.get("ROI_HEAD") is not None:
+            self.add_module("roi_head", build_roi_head(cfg["ROI_HEAD"], self.num_class,
+                                                       num_point_features))
+            names.append("roi_head")
         return names

@@ -17,7 +17,7 @@ from .detector_template import Detector3DTemplate
 def generic_post_processing(model_cfg, batch):
     """The decoded anchors' class-agnostic NMS: sigmoid scores (unless the
     head normalised them), the max over classes as the score, its argmax + 1
-    as the label, ``SCORE_THRESH`` and the NMS config's cuts; with
+    as the label (a two-stage model's: its ROI labels), ``SCORE_THRESH`` and the NMS config's cuts; with
     ``OUTPUT_RAW_SCORE`` a kept box reports its raw logit. Returns
     pred_boxes (B, POST, 7), pred_scores, pred_labels (1-based), pred_valid."""
     pp = model_cfg["POST_PROCESSING"]
@@ -28,7 +28,9 @@ def generic_post_processing(model_cfg, batch):
     box_preds = batch["batch_box_preds"]  # (B, NA, 7)
     cls_preds = src_cls_preds if batch.get("cls_preds_normalized", False) else torch.sigmoid(src_cls_preds)
     max_scores = cls_preds.max(-1)[0]
-    label_preds = torch.argmax(cls_preds, dim=-1) + 1
+    # a two-stage model's labels are its ROI stage's
+    label_preds = (batch["roi_labels"] if batch.get("has_class_labels", False)
+                   else torch.argmax(cls_preds, dim=-1) + 1)
     valid = batch.get("batch_pred_valid")
     if valid is None:
         valid = torch.ones_like(max_scores, dtype=torch.bool)

@@ -11,6 +11,7 @@ tensors, so several ranks may share one card). Ranks meet at
 ``init_method``: ``env://`` under ``torchrun``, or a ``file://`` path.
 """
 import contextlib
+import datetime
 
 import numpy as np
 import torch
@@ -20,14 +21,18 @@ from .collective import all_gather_objects, get_dist_info
 
 
 @contextlib.contextmanager
-def process_group(rank, world_size, init_method, backend, device=None):
+def process_group(rank, world_size, init_method, backend, device=None, timeout=None):
     """The default process group, joined as ``rank`` of ``world_size`` for
     the ``with`` block and torn down after it, whatever happens inside. A
     CUDA ``device`` becomes the rank's current device first (NCCL takes a
-    card a rank)."""
+    card a rank). ``timeout`` (seconds; default torch's) bounds the
+    rendezvous and every collective: a rank left waiting for a peer that
+    died raises instead of hanging."""
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.set_device(torch.device(device))
-    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size)
+    kwargs = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size,
+                            **kwargs)
     try:
         yield
     finally:

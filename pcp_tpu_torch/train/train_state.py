@@ -80,10 +80,14 @@ def init_weights(model, seed):
 
 
 def create_train_state(model, optimizer, seed):
-    """Initialise ``model``'s weights from ``seed`` (:func:`init_weights`),
+    """Initialise ``model``'s weights from ``seed`` (:func:`init_weights`)
+    and the generator of any module that draws in training (``reseed``),
     clear ``optimizer``'s state and count, and put the model in training
     mode."""
     init_weights(model, seed)
+    for m in model.modules():  # PointRCNN's ROI sampling draws
+        if hasattr(m, "reseed"):
+            m.reseed(seed)
     optimizer.state.clear()
     for group in optimizer.param_groups:
         group["count"] = 0

@@ -37,6 +37,15 @@ by leaf against the JAX package's.
     the SECOND backbone (``backbone_3d.conv_input.0.weight``,
     ``backbone_3d.conv1.0.conv1.weight``, ``backbone_3d.conv2.0.0.weight``, ...;
     ``models/backbones_3d/spconv_backbone.py``)
+  * PointRCNN: a shared MLP's ``dense_{j}`` / ``bn_{j}`` -> ``{3j}`` /
+    ``{3j+1}`` (``{2j}`` without BN) under ``backbone_3d.SA_modules.{k}.mlps.{i}``,
+    ``backbone_3d.FP_modules.{i}.mlp``, ``roi_head.xyz_up_layer``,
+    ``roi_head.merge_down_layer`` and ``roi_head.SA_modules.{k}.mlps.0``; the
+    point head's ``cls_{i}`` / ``cls_bn_{i}`` / ``cls_out`` (and ``box_*``)
+    -> ``point_head.cls_layers`` (``box_layers``) at 3i, 3i+1 and last; the
+    ROI head's ``cls_fc_*`` / ``cls_out`` (``reg_fc_*`` / ``reg_out``) ->
+    ``roi_head.cls_layers`` (``reg_layers``), whose Dropout after the first
+    width shifts the later indices by one
 """
 import numpy as np
 import torch
@@ -75,10 +84,10 @@ def _put_conv(sd, prefix, params, to_weight=_conv):
 
 
 def state_dict_from_jax_variables(variables, model_cfg):
-    """Map flax ``variables`` of a pillar CenterPoint built from ``model_cfg``
-    (the MODEL config) to a pcdet-named state dict of tensors. Sub-modules
-    whose key (BEV_MAKER_*, TEACHER, VFE, BACKBONE_2D, CORRECTOR,
-    V2X_MID_FUSION, DENSE_HEAD) the config lacks, or whose subtree the
+    """Map flax ``variables`` of a model built from ``model_cfg`` (the MODEL
+    config) to a pcdet-named state dict of tensors. Sub-modules whose key
+    (BEV_MAKER_*, TEACHER, VFE, BACKBONE_3D, BACKBONE_2D, CORRECTOR,
+    V2X_MID_FUSION, DENSE_HEAD, POINT_HEAD, ROI_HEAD) the config lacks, or whose subtree the
     variables lack (an eval-mode init never calls the early maker or the
     teacher), are skipped."""
     params, stats = variables["params"], variables.get("batch_stats")
@@ -89,7 +98,12 @@ def state_dict_from_jax_variables(variables, model_cfg):
             _single_agent(sd, params[name], _sub(stats, name), model_cfg[key], f"{name}.")
     _single_agent(sd, params, stats, model_cfg)
     if model_cfg.get("BACKBONE_3D") is not None:
-        _backbone_3d(sd, params["backbone_3d"], _sub(stats, "backbone_3d"))
+        put_b3d = _pointnet2 if model_cfg["BACKBONE_3D"]["NAME"] == "PointNet2MSG" else _backbone_3d
+        put_b3d(sd, params["backbone_3d"], _sub(stats, "backbone_3d"))
+    if model_cfg.get("POINT_HEAD") is not None:
+        _point_head(sd, params["point_head"], _sub(stats, "point_head"))
+    if model_cfg.get("ROI_HEAD") is not None:
+        _pointrcnn_head(sd, params["roi_head"], _sub(stats, "roi_head"), model_cfg["ROI_HEAD"])
     if "CORRECTOR" in model_cfg and model_cfg["CORRECTOR"]["NAME"] == "HunterJr":
         _corrector(sd, params["corrector"], _sub(stats, "corrector"))
     if model_cfg.get("V2X_MID_FUSION") is not None and "v2x_mid_fusion" in params:
@@ -287,3 +301,68 @@ def put_mlp(sd, prefix, params, stats):
         if f"norm_{i}" in params:
             _put_bn(sd, f"{prefix}.{3 * i + 1}", params[f"norm_{i}"], _sub(stats, f"norm_{i}"))
         i += 1
+
+
+def _put_linear(sd, prefix, params):
+    sd[f"{prefix}.weight"] = _linear(params["kernel"])
+    if "bias" in params:
+        sd[f"{prefix}.bias"] = _tensor(params["bias"])
+
+
+def _shared_mlp(sd, prefix, params, stats):
+    """``dense_{j}`` (and ``bn_{j}``) -> ``{prefix}.{3j}`` and ``.{3j+1}``,
+    or without BN ``{prefix}.{2j}``."""
+    use_bn = "bn_0" in params
+    j = 0
+    while f"dense_{j}" in params:
+        _put_linear(sd, f"{prefix}.{3 * j if use_bn else 2 * j}", params[f"dense_{j}"])
+        if use_bn:
+            _put_bn(sd, f"{prefix}.{3 * j + 1}", params[f"bn_{j}"], _sub(stats, f"bn_{j}"))
+        j += 1
+
+
+def _fc_tower(sd, prefix, params, stats, name, out_name, dropout_after_first=False):
+    """``{name}_{i}`` / ``{name}_bn_{i}`` then ``{out_name}`` -> a Sequential
+    of [Linear, BN, ReLU] per width (a Dropout after the first when
+    ``dropout_after_first``) and a last Linear."""
+    pos, i = 0, 0
+    while f"{name}_{i}" in params:
+        _put_linear(sd, f"{prefix}.{pos}", params[f"{name}_{i}"])
+        _put_bn(sd, f"{prefix}.{pos + 1}", params[f"{name}_bn_{i}"], _sub(stats, f"{name}_bn_{i}"))
+        pos += 4 if (dropout_after_first and i == 0) else 3
+        i += 1
+    _put_linear(sd, f"{prefix}.{pos}", params[out_name])
+
+
+def _pointnet2(sd, bp, bs):
+    k = 0
+    while f"sa_{k}" in bp:
+        i = 0
+        while f"mlp_{i}" in bp[f"sa_{k}"]:
+            _shared_mlp(sd, f"backbone_3d.SA_modules.{k}.mlps.{i}", bp[f"sa_{k}"][f"mlp_{i}"],
+                        _sub(_sub(bs, f"sa_{k}"), f"mlp_{i}"))
+            i += 1
+        k += 1
+    i = 0
+    while f"fp_{i}" in bp:
+        _shared_mlp(sd, f"backbone_3d.FP_modules.{i}.mlp", bp[f"fp_{i}"]["mlp"],
+                    _sub(_sub(bs, f"fp_{i}"), "mlp"))
+        i += 1
+
+
+def _point_head(sd, hp, hs):
+    _fc_tower(sd, "point_head.cls_layers", hp, hs, "cls", "cls_out")
+    _fc_tower(sd, "point_head.box_layers", hp, hs, "box", "box_out")
+
+
+def _pointrcnn_head(sd, rp, rs, rcfg):
+    _shared_mlp(sd, "roi_head.xyz_up_layer", rp["xyz_up"], _sub(rs, "xyz_up"))
+    _shared_mlp(sd, "roi_head.merge_down_layer", rp["merge_down"], _sub(rs, "merge_down"))
+    k = 0
+    while f"sa_{k}" in rp:
+        _shared_mlp(sd, f"roi_head.SA_modules.{k}.mlps.0", rp[f"sa_{k}"]["mlp_0"],
+                    _sub(_sub(rs, f"sa_{k}"), "mlp_0"))
+        k += 1
+    dropout = float(rcfg.get("DP_RATIO", 0.0)) >= 0
+    _fc_tower(sd, "roi_head.cls_layers", rp, rs, "cls_fc", "cls_out", dropout)
+    _fc_tower(sd, "roi_head.reg_layers", rp, rs, "reg_fc", "reg_out", dropout)

@@ -20,6 +20,15 @@ from pcp_tpu.ops.pallas import bev_scatter as jax_bev
 from pcp_tpu.ops.pallas.bev_scatter import bev_scatter_max_sorted as jax_scatter
 from pcp_tpu_torch.ops import bev_scatter
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 B, N, C, H, W = 2, 3000, 16, 32, 32  # N is not a multiple of the TPU kernel's chunk
 
 # variant -> (port function, its kernel's name, JAX function taking interpret=True last)

@@ -17,6 +17,15 @@ from pcp_tpu_torch.utils.box_match import match_surviving_boxes
 from torch_port_helpers import MODEL_CFG, build_pair, clustered_points
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _forward_pair(model_cfg=None):
     rng = np.random.default_rng(11)
     pts = clustered_points(rng, 2, 3000)

@@ -9,6 +9,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from pcp_tpu.config import CfgDict, cfg_from_yaml_file
@@ -18,6 +19,15 @@ from pcp_tpu.train.checkpoint import load_params_from_file
 from pcp_tpu_torch.entry import CFG_EGO, build
 from pcp_tpu_torch.utils.box_match import match_surviving_boxes
 from pcp_tpu_torch.utils.jax_weights import state_dict_from_jax_variables
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 

@@ -312,15 +312,21 @@ def test_not_ported_raise_naming_their_item():
     from pcp_tpu_torch.datasets.augmentor.data_augmentor import DataAugmentor
     from pcp_tpu_torch.datasets.v2x_sim.source import NuScenesV2XSource
 
+    # KITTI and the custom dataset are ported: without their infos they
+    # raise naming the function that builds them
     _, tcfg = cfg_pair("v2x_sim_dataset_ego_early")
-    for name in ("KittiDataset", "CustomDataset"):
+    tcfg.DATA_SPLIT = {"train": "train", "test": "val"}
+    for name, builder in (("KittiDataset", "create_kitti_infos"),
+                          ("CustomDataset", "create_custom_infos")):
         tcfg.DATASET = name
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(FileNotFoundError, match=builder):
             build_dataloader(tcfg, ["car"], batch_size=1, training=False, workers=0)
     # the real V2X-Sim source is ported; without the devkit, and without a
     # database handed to it, it raises as the JAX package's does
     with pytest.raises(ImportError, match="nuscenes-devkit"):
         NuScenesV2XSource("data", "v2.0-trainval")
-    with pytest.raises(NotImplementedError, match="A11"):
-        DataAugmentor(None, {"DISABLE_AUG_LIST": [], "AUG_CONFIG_LIST": [{"NAME": "gt_sampling"}]},
-                      ["car"])
+    # gt_sampling is ported; the local augmentations are not
+    for name in ("random_local_rotation", "random_local_pyramid_aug"):
+        with pytest.raises(NotImplementedError, match="A11.5"):
+            DataAugmentor(None, {"DISABLE_AUG_LIST": [], "AUG_CONFIG_LIST": [{"NAME": name}]},
+                          ["car"])

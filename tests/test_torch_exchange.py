@@ -25,6 +25,15 @@ from pcp_tpu_torch.ops.points_in_boxes import points_in_boxes
 from pcp_tpu_torch.train.eval_utils import make_exchange_writer
 from pcp_tpu_torch.utils import geometry as tgeo
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 def _boxes(rng, m):
     b = np.zeros((m, 7), np.float32)
     b[:, 0:2] = rng.uniform(-10, 10, (m, 2))

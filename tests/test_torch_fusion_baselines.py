@@ -287,8 +287,9 @@ def test_late_eval_cli_without_checkpoint_matches_jax(late_db, tmp_path):
 def test_early_config_trains_and_disco_raises(tmp_path):
     """One epoch of the reduced early ego through the train CLI on the CPU;
     a config with a MODEL module that is still not ported (A11.6: the
-    SECOND ego with PartA2's UNetV2 as its 3D backbone) and a dataset that
-    is not (KITTI) refuse, naming A11."""
+    SECOND ego with PartA2's UNetV2 as its 3D backbone) refuses, naming
+    A11; KITTI, ported, refuses a data path without its infos, naming the
+    command that builds them."""
     argv = ["--batch_size", "2", "--workers", "0", "--device", "cpu", "--extra_tag", "early",
             "--output_root", str(tmp_path), "--num_epochs_to_eval", "0", "--precise_bn", "0",
             "--seed", "1"]
@@ -303,5 +304,6 @@ def test_early_config_trains_and_disco_raises(tmp_path):
                         "--set", "MODEL.BACKBONE_3D.NAME", "UNetV2"])
     _, tcfg = cfg_pair("v2x_sim_dataset_ego_early")
     tcfg.DATASET = "KittiDataset"
-    with pytest.raises(NotImplementedError, match="A11"):
+    tcfg.DATA_SPLIT = {"train": "train", "test": "val"}
+    with pytest.raises(FileNotFoundError, match="create_kitti_infos"):
         build_dataloader(tcfg, ["car"], batch_size=1, training=False, workers=0)

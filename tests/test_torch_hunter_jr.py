@@ -28,6 +28,15 @@ from test_hunter_jr import make_sweep_batch
 from torch_port_helpers import (CAR_CFG, CAR_FEATURES, PC_RANGE, build_pair, info_kwargs,
                                 load_eval_variables, randomize_batch_stats)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 THRESH = 0.3
 
 

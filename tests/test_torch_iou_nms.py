@@ -17,6 +17,15 @@ from pcp_tpu_torch.ops.nms import class_agnostic_nms, nms_bev
 from pcp_tpu_torch.ops.rotated_iou import boxes_iou_bev
 from reference_impls import greedy_nms_ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 THRESH = 0.2
 
 
@@ -110,3 +119,44 @@ def test_class_agnostic_nms_preselects_like_jax():
                                     torch.from_numpy(valid), cfg)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert int(got_n) == int(want_n)
+
+
+@pytest.mark.parametrize("thresh", [0.1, 0.8])
+def test_pair_restricted_overlaps_equal_the_dense_ones(thresh, monkeypatch):
+    """Above ``PAIRS_ABOVE`` candidates the NMS takes the IoU only for pairs
+    whose BEV circles meet: that overlap matrix equals the dense path's,
+    batched, in several chunks, on clustered boxes (many overlaps) among
+    scattered ones with near twins, and the kept indices (padding rows
+    among them) equal a sequential greedy pass over the dense matrix."""
+    from pcp_tpu_torch.ops import nms
+
+    rng = np.random.default_rng(int(thresh * 10))
+    b, k = 2, 300
+    centres = rng.uniform([0, -40], [70, 40], (b, 20, 2))
+    xy = centres[:, rng.integers(0, 20, k)] + rng.normal(0, 1.0, (b, k, 2))
+    boxes = np.concatenate([xy, rng.uniform(-2, 0, (b, k, 1)), rng.uniform(0.5, 4.5, (b, k, 3)),
+                            rng.uniform(-np.pi, np.pi, (b, k, 1))], -1).astype(np.float32)
+    boxes[:, 1::3] = boxes[:, 0::3] + rng.normal(0, 0.02, boxes[:, 0::3].shape)  # near twins
+    scores = rng.uniform(0, 1, (b, k)).astype(np.float32)
+    valid = np.ones((b, k), bool)
+    valid[1, -50:] = False
+    bt = torch.from_numpy(boxes)
+    idx = torch.arange(k)
+    dense = (boxes_iou_bev(bt, bt) > thresh) & (idx[None, :] < idx[:, None])
+    assert torch.equal(nms._over_dense(bt, thresh), dense)
+    monkeypatch.setattr(nms, "PAIR_CHUNK", 2000)
+    assert torch.equal(nms._over_pairs(bt, thresh), dense)
+    monkeypatch.setattr(nms, "PAIRS_ABOVE", 0)
+    got_idx, got_n = nms_bev(bt, torch.from_numpy(scores), torch.from_numpy(valid), thresh, 300)
+    for s in range(b):
+        order = np.argsort(-np.where(valid[s], scores[s], -np.inf), kind="stable")
+        bs = bt[s][torch.from_numpy(order)]
+        over = (boxes_iou_bev(bs, bs) > thresh).numpy()
+        kept = []
+        for i in range(k):
+            if valid[s, order[i]] and not any(over[i, j] for j in kept):
+                kept.append(i)
+        assert got_idx[s, :int(got_n[s])].tolist() == order[kept].tolist()
+    assert 10 < int(got_n[0]) < k - 50
+    with pytest.raises(ValueError, match="above 0"):
+        nms_bev(bt, torch.from_numpy(scores), torch.from_numpy(valid), 0.0, 300)

@@ -5,7 +5,10 @@ and car models on the CPU, puts the car in training mode, builds DiscoNet
 (its frozen makers stay in eval mode when it trains), imports the bench, the
 exchange's modules, the data pipeline (the early, late and DiscoNet
 datasets too), late fusion, the teacher and the oracle corrector, the CLIs and the workspace scripts, reads a dataset item through the native host kernels
-(built into the port's own ``native/build/``), and a scan of every import
+(built into the port's own ``native/build/``), builds KITTI infos and the gt
+database on a fake tree (``tests/torch_fake_kitti.py``; its PNGs read
+without PIL), PointRCNN in training mode and a KITTI training item with
+gt_sampling, and the custom dataset's infos; and a scan of every import
 statement in the package (``pcp_tpu_torch/bench.py`` included), in the
 measurement scripts under tools_torch/ and in chip_smoke.py. The entry
 points default to the GPU and raise without one.
@@ -22,6 +25,8 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pcp_tpu")
 # absent on the card's machine: the map rasters are numpy alone
 MAP_FREE = ("cv2", "matplotlib", "nuscenes")
+# absent there too: KITTI's image shapes come from the PNG header
+IMAGE_FREE = ("PIL",)
 SOURCES = sorted(str(p.relative_to(REPO)) for p in (REPO / "pcp_tpu_torch").rglob("*.py"))
 SOURCES += sorted(str(p.relative_to(REPO)) for p in (REPO / "tools_torch").glob("*.py"))
 SOURCES.append("chip_smoke.py")
@@ -61,7 +66,25 @@ def test_fresh_interpreter_loads_no_jax():
         "ds[0]\n"
         "assert native._LIB is not None and native.library_path().parent == native.BUILD_DIR\n"
         "assert native.BUILD_DIR.parts[-3:] == ('pcp_tpu_torch', 'native', 'build'), native.BUILD_DIR\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + MAP_FREE!r})\n"
+        "import tempfile, pathlib\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from torch_fake_kitti import make_kitti_tree, make_custom_tree\n"
+        "from pcp_tpu_torch.datasets.kitti import kitti_dataset\n"
+        "from pcp_tpu_torch.datasets.custom.custom_dataset import create_custom_infos\n"
+        "from pcp_tpu_torch.entry import CFG_POINTRCNN\n"
+        "import pcp_tpu_torch.tools.create_integrated_database\n"
+        "root = make_kitti_tree(pathlib.Path(tempfile.mkdtemp()) / 'kitti')\n"
+        "kitti_dataset.main(['create_kitti_infos', 'tools/cfgs/dataset_configs/kitti_dataset.yaml',\n"
+        "                    '--data_path', str(root)])\n"
+        "cfg, info, model = build(CFG_POINTRCNN, device='cpu', set_cfgs=['DATA_CONFIG.DATA_PATH', str(root)])\n"
+        "model.train()\n"
+        "ds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=1, training=True,\n"
+        "                           workers=0)\n"
+        "assert ds[0]['points'].shape == (16384, 4)\n"
+        "ccfg = cfg_from_yaml_file('tools/cfgs/custom_models/second.yaml', CfgDict())\n"
+        "croot = make_custom_tree(pathlib.Path(tempfile.mkdtemp()) / 'custom')\n"
+        "create_custom_infos(ccfg.DATA_CONFIG, ccfg.CLASS_NAMES, croot, croot)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + MAP_FREE + IMAGE_FREE!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -29,6 +29,15 @@ from pcp_tpu_torch.config import CfgDict as TorchCfgDict
 from pcp_tpu_torch.models.model_utils.norm import BatchNorm2d, MaskedBatchNorm
 from pcp_tpu_torch.train.optimization import build_optimizer, clip_by_global_norm_, one_cycle_fns
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 ROWS, C, MOMENTUM = 16, 4, 0.5
 
 

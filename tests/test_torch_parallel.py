@@ -44,7 +44,7 @@ from pcp_tpu_torch.datasets.loader import DataLoader
 from pcp_tpu_torch.parallel import (all_reduce_gradients, all_reduce_sum, average_reduce_value,
                                     get_dist_info, merge_results_dist, reduce_dict)
 from pcp_tpu_torch.train.train_state import biases_before_bn
-from torch_dp_ranks import WORLD, build, cli_rank, one_step, step_rank
+from torch_dp_ranks import WORLD, build, cli_rank, one_step, spawn_ranks, step_rank
 from torch_port_helpers import (CAR_CFG, CAR_FEATURES, MODEL_CFG, OPTIM, info_kwargs,
                                 make_train_batch, torch_batch)
 
@@ -78,9 +78,8 @@ def runs():
 
     car_batch = sweep_batch(np.random.default_rng(SEED))
     with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.spawn(step_rank, args=(tmp, batch, MODEL_CFG, CAR_CFG, car_batch,
-                                                     info_kwargs(), info_kwargs(CAR_FEATURES),
-                                                     OPTIM, SEED), nprocs=WORLD, join=True)
+        spawn_ranks(step_rank, (tmp, batch, MODEL_CFG, CAR_CFG, car_batch, info_kwargs(),
+                                info_kwargs(CAR_FEATURES), OPTIM, SEED))
         ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     return single, ranks, single_f64
 
@@ -228,8 +227,7 @@ def test_train_cli_launcher_pytorch(tmp_path):
     from pcp_tpu_torch.tools import train as train_cli
 
     with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.spawn(cli_rank, args=(tmp, _ego_cli_argv(tmp_path)), nprocs=WORLD,
-                                    join=True)
+        spawn_ranks(cli_rank, (tmp, _ego_cli_argv(tmp_path)))
         ranks = [torch.load(Path(tmp) / f"cli{r}.pt", weights_only=False) for r in range(WORLD)]
     assert ranks[0]["steps"] == ranks[1]["steps"] > 0
     assert ranks[0]["losses"] == ranks[1]["losses"] and np.isfinite(ranks[0]["losses"]).all()

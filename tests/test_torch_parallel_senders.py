@@ -54,7 +54,8 @@ from pcp_tpu_torch.config import CfgDict, cfg_from_list, cfg_from_yaml_file
 from pcp_tpu_torch.datasets import build_dataloader
 from pcp_tpu_torch.models import DatasetInfo
 from test_hunter_jr import make_sweep_batch
-from torch_dp_ranks import WORLD, build, model_step, recalibrated, run_primitive, senders_rank
+from torch_dp_ranks import (WORLD, build, model_step, recalibrated, run_primitive, senders_rank,
+                            spawn_ranks)
 from torch_port_helpers import (CAR_CFG, CAR_FEATURES, MODEL_CFG, OPTIM, exact_zero_leaves, info_kwargs,
                                 make_train_batch, torch_batch)
 
@@ -165,8 +166,7 @@ def runs():
     one["recal"] = {name: recalibrated(cfg, info, SEED, batches, torch.float64)
                     for name, (cfg, info, batches) in cases["recal"].items()}
     with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.spawn(senders_rank, args=(tmp, cases, OPTIM, SEED), nprocs=WORLD,
-                                    join=True)
+        spawn_ranks(senders_rank, (tmp, cases, OPTIM, SEED))
         ranks = [torch.load(Path(tmp) / f"senders{r}.pt", weights_only=False) for r in range(WORLD)]
     torch.set_num_threads(threads)
     return one, ranks, {"car": build(CAR_CFG, car_info), "disco": build(disco_cfg, disco_info)}

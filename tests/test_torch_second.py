@@ -435,7 +435,7 @@ def test_float64_step_under_two_ranks_equals_one_process():
     from pathlib import Path
 
     from test_torch_anchor import ANCHOR_CFG
-    from torch_dp_ranks import WORLD, build, model_step, senders_rank
+    from torch_dp_ranks import WORLD, build, model_step, senders_rank, spawn_ranks
     from torch_port_helpers import OPTIM, make_train_batch
     from torch_port_helpers import info_kwargs as pillar_info
 
@@ -451,9 +451,7 @@ def test_float64_step_under_two_ranks_equals_one_process():
     one = {name: model_step(cfg, info, OPTIM, 5, batch, dtype)
            for name, (cfg, info, batch, dtype) in steps.items()}
     with tempfile.TemporaryDirectory() as tmp:
-        torch.multiprocessing.spawn(senders_rank, nprocs=WORLD, join=True,
-                                    args=(tmp, {"primitives": {}, "steps": steps, "recal": {}},
-                                          OPTIM, 5))
+        spawn_ranks(senders_rank, (tmp, {"primitives": {}, "steps": steps, "recal": {}}, OPTIM, 5))
         ranks = [torch.load(Path(tmp) / f"senders{r}.pt", weights_only=False) for r in range(WORLD)]
     torch.set_num_threads(threads)
     for name, (cfg, info, _, _) in steps.items():

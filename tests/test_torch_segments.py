@@ -15,6 +15,15 @@ from pcp_tpu.ops import sorted_segments as jseg
 from pcp_tpu_torch.ops import sorted_segments as tseg
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 def _sorted_pids(rng, b, n, n_ids):
     return np.sort(rng.integers(0, n_ids, size=(b, n)), axis=1).astype(np.int32)
 

@@ -28,6 +28,15 @@ from pcp_tpu_torch.models.loss_fnc import centernet_losses as tl
 from pcp_tpu_torch.models.model_utils import centernet_utils as tu
 from torch_port_helpers import MODEL_CFG, PC_RANGE, VOXEL
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 STRIDE, FEAT = 4, 32  # the small model's 128x128 grid at feature stride 4
 
 

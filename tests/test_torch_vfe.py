@@ -17,6 +17,15 @@ from pcp_tpu_torch.utils.jax_weights import state_dict_from_jax_variables
 from torch_port_helpers import (GRID, NUM_FEATURES, NUM_RAW, PC_RANGE, VOXEL, clustered_points,
                                 randomize_batch_stats)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 VFE_CFG = {"NAME": "DynPillarVFE", "NUM_RAW_POINT_FEATURES": NUM_RAW, "WITH_DISTANCE": False,
            "USE_ABSLOTE_XYZ": True, "USE_NORM": True, "NUM_FILTERS": [32, 32]}
 GEOM = dict(num_point_features=NUM_FEATURES, voxel_size=VOXEL, grid_size=(GRID, GRID, 1),

@@ -29,6 +29,15 @@ from pcp_tpu_torch.train.train_state import init_weights
 from pcp_tpu_torch.utils.jax_weights import state_dict_from_jax_variables, tensors_from_jax_params
 from torch_port_helpers import CAR_CFG, CAR_FEATURES, MODEL_CFG, build_pair, info_kwargs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads: the tier-1 run has six test processes on eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "results", "bench_ckpt")
 
 

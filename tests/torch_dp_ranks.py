@@ -5,9 +5,14 @@ Each spawned rank imports the module of its function afresh, so these live
 in a module that imports no JAX (tests/torch_port_helpers.py takes seconds
 to import): the test passes the configs and the batch in. The one-process
 references of the tests call the same functions outside a process group.
+The tests start the ranks with :func:`spawn_ranks`, which fails after
+``DEADLINE`` seconds where ``torch.multiprocessing.spawn(join=True)`` would
+wait for ever; each rank's process group times out after ``RANK_TIMEOUT``
+seconds, so that a rank whose peer died raises.
 """
 import copy
 import os
+import time
 from pathlib import Path
 
 import torch
@@ -25,6 +30,24 @@ from pcp_tpu_torch.train.optimization import build_optimizer
 from pcp_tpu_torch.train.train_state import create_train_state, init_weights, make_train_step
 
 WORLD = 2
+DEADLINE = 600  # seconds the ranks of one spawn may take together
+RANK_TIMEOUT = 300  # seconds a collective waits for the other rank
+
+
+def spawn_ranks(fn, args, nprocs=WORLD, deadline=DEADLINE):
+    """``torch.multiprocessing.spawn(fn, args, nprocs)``, joined; the ranks
+    still running after ``deadline`` seconds are terminated and the caller
+    gets an AssertionError. A rank that fails raises as with ``join=True``."""
+    ctx = torch.multiprocessing.spawn(fn, args=args, nprocs=nprocs, join=False)
+    end = time.monotonic() + deadline
+    while not ctx.join(timeout=max(0.1, min(5.0, end - time.monotonic()))):
+        if time.monotonic() >= end:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+            raise AssertionError(f"{fn.__name__}: ranks still running after {deadline} s")
 
 
 def build(cfg, info):
@@ -60,7 +83,7 @@ def step_rank(rank, tmp, batch, cfg, car_cfg, car_batch, info, car_info, optim, 
     """One rank: its share of the step in float32 and float64, then the
     collectives and a sender's step; written to ``{tmp}/rank{rank}.pt``."""
     torch.set_num_threads(1)
-    with process_group(rank, WORLD, f"file://{tmp}/rendezvous", "gloo"):
+    with process_group(rank, WORLD, f"file://{tmp}/rendezvous", "gloo", timeout=RANK_TIMEOUT):
         share = shard_batch(batch, rank, WORLD)
         loss, tb, sd, _ = one_step(cfg, info, optim, seed, share)
         f64 = one_step(cfg, info, optim, seed, share, torch.float64)
@@ -93,7 +116,7 @@ def cli_rank(rank, tmp, argv):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank))
     meet = train_cli.process_group
     train_cli.process_group = lambda r, w, _, backend, device: meet(
-        r, w, f"file://{tmp}/rendezvous", backend, device)
+        r, w, f"file://{tmp}/rendezvous", backend, device, timeout=RANK_TIMEOUT)
     torch.save(train_cli.main(["--launcher", "pytorch"] + argv), Path(tmp) / f"cli{rank}.pt")
 
 
@@ -148,7 +171,7 @@ def senders_rank(rank, tmp, cases, optim, seed):
     small ego's BF16 step, each on this rank's rows;
     written to ``{tmp}/senders{rank}.pt``."""
     torch.set_num_threads(1)
-    with process_group(rank, WORLD, f"file://{tmp}/rendezvous", "gloo"):
+    with process_group(rank, WORLD, f"file://{tmp}/rendezvous", "gloo", timeout=RANK_TIMEOUT):
         out = {"primitives": {name: run_primitive(name, {k: v.chunk(WORLD)[rank] for k, v in x.items()},
                                                   **kw)
                               for name, (x, kw) in cases["primitives"].items()}}
