@@ -248,6 +248,27 @@ kitti. (after jr) KITTI data and PointRCNN (``kitti_models/pointrcnn.yaml``)
    CLI's KITTI AP table. Phase a11's CLI stages train one epoch each
    (A11_CLI_EPOCHS; two until this phase came).
 
+pvrcnn. (after kitti) PV-RCNN (``custom_models/pv_rcnn.yaml`` with
+   ``entry.PVRCNN_Z_RANGE``: 40 z slices, a 1408 x 800 x 40 grid; every
+   width as published) at full width: a fake custom tree in
+   ``build/pvrcnn`` (four training and two validation frames of 32768
+   returns), its infos through ``create_custom_infos``; the b2 x 32768
+   validation batch's eval forward at a voxel budget of 40000 (no kernel of
+   the five launched: the mean VFE has no scatter; 4096 keypoints, 300
+   ROIs, boxes finite); b1 card against CPU (FPS and ball-query indices
+   equal, the keypoint features and scores and the ROI stage on the card's
+   proposals within PVRCNN_TOL or 3x the CPU's spread, the surviving boxes
+   under the margin rule, the proposal and the final NMS's kept indices
+   equal on the card's own inputs); the forward's time, stages and peak
+   memory; PVRCNN_TRAIN_STEPS train steps at a budget of 16000, the last on
+   jittered gt boxes handed in as ROIs (the reg tower's gradient nonzero
+   and finite), their times and peak memory; PV-RCNN++
+   (``entry.PVRCNN_PLUSPLUS`` over the config) at b1: an eval forward and
+   one train step on jittered gt boxes handed in as ROIs (the reg tower's
+   gradient nonzero and finite), their times and peak memory; then the
+   train CLI for one epoch and the test CLI's KITTI AP table through
+   MAP_CLASS_TO_KITTI.
+
 The last three lines are the kernels' record (JSON, with the train phase's
 numbers under ``"train"``, phase 6's under ``"senders"``, phase 7's under
 ``"sender_train"``, the trained ego's under ``"trained_ego"``, the bench's
@@ -261,7 +282,11 @@ CLI stage under ``"launches_per_jr_forward"``, ``"..._jr_train_step"`` and
 ``"launches_in_jr_cli"``, phase jr's record under ``"jr"``; in PointRCNN's
 forward, train step and CLI stages under ``"launches_per_kitti_forward"``,
 ``"launches_per_kitti_train_step"`` and ``"launches_in_kitti_cli"``, phase
-kitti's record under ``"kitti"``; in each pipeline stage under
+kitti's record under ``"kitti"``; in PV-RCNN's under
+``"launches_per_pvrcnn_forward"``, ``"launches_per_pvrcnn_train_step"`` and
+``"launches_in_pvrcnn_cli"``, in PV-RCNN++'s forward and train step under
+``"launches_per_pvrcnn_plusplus_forward"`` and ``"..._train_step"``, phase
+pvrcnn's record under ``"pvrcnn"``; in each pipeline stage under
 ``"launches_in_pipeline"``, in a DiscoNet eval forward and train step under
 ``"launches_per_disco_eval_forward"`` and ``"..._train_step"``, in a
 serving mode's forward under ``"launches_per_serving_forward"``, in a
@@ -616,7 +641,7 @@ def seeded_state_dict(model, seed):
     for name, m in model.named_modules():
         if isinstance(m, SparseConv3d):  # (Cout, kz, ky, kx, Cin): fan-in K * Cin
             sd[f"{name}.weight"] = rng.normal(0, m.weight[0].numel() ** -0.5, m.weight.shape)
-        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             # a transposed conv with kernel == stride feeds each output from
             # one tap of every input channel
@@ -4236,6 +4261,384 @@ def phase_kitti(seed):
     return counts, step_counts, record
 
 
+# ------------------------------------------------------------ pvrcnn. PV-RCNN on the custom dataset
+
+# the fake custom tree of tests/torch_fake_kitti.py: four training frames (two
+# train steps at the config's b2 through the CLI) and two validation frames,
+# each of MAX_POINTS_PER_SAMPLE returns
+PVRCNN_TRAIN_IDS = ("a0", "a1", "a2", "a3")
+PVRCNN_VAL_IDS = ("b0", "b1")
+PVRCNN_POINTS = 32768
+PVRCNN_TRAIN_STEPS = 2  # steps on one batch, each loss finite
+# MODEL.VFE.MAX_VOXELS in each mode: the dataset config's
+# MAX_NUMBER_OF_VOXELS, which neither package's VFE reads by itself
+PVRCNN_BUDGETS = {"test": 40000, "train": 16000}
+# card against CPU, b1 eval, (atol, rtol) of each tensor, held to at least
+# SPREAD_FACTOR x the CPU's own spread between 8 and 4 threads; the ROI
+# stage runs on the card's proposals on both sides
+PVRCNN_TOL = {"point_features": (1e-4, 1e-4), "point_cls_scores": (1e-4, 1e-4),
+              "batch_cls_preds": (1e-4, 1e-4), "batch_box_preds": (1e-4, 1e-4)}
+
+
+def pvrcnn_sets(data, mode):
+    """The CLIs' --set pairs of PV-RCNN on the tree at ``data`` in ``mode``
+    (test or train): the z range override and the mode's voxel budget."""
+    from pcp_tpu_torch.entry import PVRCNN_Z_RANGE
+
+    return PVRCNN_Z_RANGE + ["DATA_CONFIG.DATA_PATH", str(data), "MODEL.VFE.MAX_VOXELS",
+                            str(PVRCNN_BUDGETS[mode])]
+
+
+def pvrcnn_stages(model, cfg):
+    from pcp_tpu_torch.models.detectors.pointpillar import generic_post_processing
+    from pcp_tpu_torch.models.roi_heads.roi_head_template import proposal_layer
+
+    nms_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    return [(name, getattr(model, name)) for name in
+            ("vfe", "backbone_3d", "map_to_bev", "pfe", "backbone_2d", "dense_head", "point_head")] + [
+        ("proposal_layer", lambda d: proposal_layer(d, nms_cfg)), ("roi_head", model.roi_head),
+        ("post_processing", lambda d: dict(d, final_box_dicts=generic_post_processing(cfg.MODEL, d)))]
+
+
+def _pvrcnn_card_vs_cpu(model, sd, sets, batch, cfg):
+    """b1 card against CPU: the FPS keypoints and every ball query's indices
+    equal, the keypoint features and scores within PVRCNN_TOL (or
+    SPREAD_FACTOR x the CPU's spread), the ROI stage on the card's proposals
+    within PVRCNN_TOL, the surviving boxes under the margin rule; the
+    proposal and the final NMS exact on the card's own inputs."""
+    from pcp_tpu_torch.entry import CFG_PVRCNN, build
+    from pcp_tpu_torch.ops.nms import class_agnostic_nms
+    from pcp_tpu_torch.utils.box_match import match_surviving_boxes
+
+    b1 = {k: v[:1] for k, v in batch.items()}
+    with torch.inference_mode(), record_indices() as gpu_seen:
+        gpu = model(b1)
+    pins = ("rois", "roi_scores", "roi_labels", "roi_valid")
+    host = {k: v.cpu() for k, v in b1.items()}
+    host.update({k: gpu[k].cpu() for k in pins}, has_class_labels=True)
+
+    def on_cpu(threads):
+        before = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            _, _, cpu = build(CFG_PVRCNN, device="cpu", set_cfgs=sets)
+            cpu.load_state_dict(sd, strict=True)
+            with torch.inference_mode(), record_indices() as seen:
+                return cpu(host), seen
+        finally:
+            torch.set_num_threads(before)
+
+    t0 = time.perf_counter()
+    cpu, cpu_seen = on_cpu(8)
+    cpu_s = time.perf_counter() - t0
+    cpu4, _ = on_cpu(4)
+    for kind in ("fps", "ball_query"):
+        if len(gpu_seen[kind]) != len(cpu_seen[kind]) or not all(
+                torch.equal(g, c) for g, c in zip(gpu_seen[kind], cpu_seen[kind])):
+            raise AssertionError(f"pvrcnn: {kind} indices differ between the card and the CPU")
+    rec = {"cpu_seconds": cpu_s, "fps_calls": len(gpu_seen["fps"]),
+           "ball_query_calls": len(gpu_seen["ball_query"]),
+           "keypoints_valid": int(gpu["point_coords_mask"].sum())}
+    for key, (atol, rtol) in PVRCNN_TOL.items():
+        g, c, c4 = gpu[key].cpu(), cpu[key], cpu4[key]
+        spread = (c - c4).abs().max().item()
+        err = (g - c).abs().max().item()
+        limit = max(atol + rtol * c.abs().max().item(), SPREAD_FACTOR * spread)
+        rec[key] = {"max_abs_err": err, "cpu_spread": spread, "limit": limit,
+                    "max_abs": c.abs().max().item()}
+        if not err <= limit:
+            raise AssertionError(f"pvrcnn: {key} card vs CPU {err} over {limit} ({rec[key]})")
+    pp = cfg.MODEL.POST_PROCESSING
+    got = {k: v[0].cpu().numpy() for k, v in gpu["final_box_dicts"].items()}
+    want = {k: v[0].numpy() for k, v in cpu["final_box_dicts"].items()}
+    rec["boxes_matched"] = match_surviving_boxes(
+        got, want, heat_scores=np.zeros(0), top_k=1, score_thresh=float(pp.SCORE_THRESH),
+        post_max=int(pp.NMS_CONFIG.NMS_POST_MAXSIZE), margin=1e-4, box_atol=1e-3,
+        box_rtol=1e-4, score_atol=1e-4, min_matched=1)
+    # the NMS's kept indices on one set of inputs, on the card and on the
+    # CPU: the anchor head's proposals and the refined boxes
+    rpn = dict(b1)
+    with torch.inference_mode():
+        for name in model.module_names[:model.module_names.index("dense_head") + 1]:
+            rpn = getattr(model, name)(rpn)
+    nms_in = ((rpn["batch_box_preds"], torch.sigmoid(rpn["batch_cls_preds"]).max(-1).values, None,
+               cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST, None),
+              (gpu["batch_box_preds"], torch.sigmoid(gpu["batch_cls_preds"]).max(-1).values,
+               gpu["batch_pred_valid"], pp.NMS_CONFIG, float(pp.SCORE_THRESH)))
+    kept = []
+    for boxes, sc, valid, nms_cfg, thresh in nms_in:
+        if valid is None:
+            valid = torch.ones_like(sc, dtype=torch.bool)
+        on_card = class_agnostic_nms(boxes, sc, valid, nms_cfg, score_thresh=thresh)[0].cpu()
+        on_cpu_ = class_agnostic_nms(boxes.cpu(), sc.cpu(), valid.cpu(), nms_cfg,
+                                     score_thresh=thresh)[0]
+        if not torch.equal(on_card, on_cpu_):
+            raise AssertionError("pvrcnn: NMS kept indices differ between the card and the CPU")
+        kept.append(int((on_card >= 0).sum()))
+    rec["nms_kept"] = kept
+    return rec
+
+
+def pvrcnn_cli(root, data, seed):
+    """The CLI stages on the fake tree: the train CLI for one epoch (two b2
+    steps with the config's adam_onecycle), then the test CLI's KITTI AP
+    table through MAP_CLASS_TO_KITTI. Returns the record."""
+    from pcp_tpu_torch.entry import CFG_PVRCNN
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.tools import test as test_cli
+    from pcp_tpu_torch.tools import train as train_cli
+
+    common = ["--cfg_file", CFG_PVRCNN, "--batch_size", "2", "--device", "cuda", "--workers",
+              "0", "--output_root", str(root), "--extra_tag", "smoke"]
+    ckpt = root / "cfgs" / "custom_models" / "pv_rcnn" / "smoke" / "ckpt" / "checkpoint_epoch_1.pth"
+    record = {}
+    for name, main_fn, argv in (
+            ("train_pvrcnn", train_cli.main,
+             common + ["--epochs", "1", "--seed", str(seed), "--num_epochs_to_eval", "0",
+                       "--precise_bn", "0", "--set"] + pvrcnn_sets(data, "train")),
+            ("eval_pvrcnn", test_cli.main,
+             common + ["--ckpt", str(ckpt), "--set"] + pvrcnn_sets(data, "test"))):
+        bs.reset_launches()
+        t0 = time.perf_counter()
+        out = main_fn(argv)
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0, "launches": dict(bs.launches)}
+        if any(rec["launches"].values()):
+            raise AssertionError(f"pvrcnn {name}: kernel launches {rec['launches']}")
+        if name.startswith("train"):
+            rec.update(steps=out["steps"], step_ms=out["step_ms_median"], losses=out["losses"])
+            if out["steps"] != len(PVRCNN_TRAIN_IDS) // 2 or not np.isfinite(out["losses"]).all():
+                raise AssertionError(f"pvrcnn {name}: {out['steps']} steps, losses {out['losses']}")
+            detail = (f"{out['steps']} steps, median step {out['step_ms_median']:.6f} ms, losses "
+                      + " ".join(f"{v:.6f}" for v in out["losses"]))
+        else:
+            keys = [k for k in out if k.endswith("_R40")] + ["recall/rcnn_0.7"]
+            rec.update({k: float(out[k]) for k in keys})
+            if len(keys) != 37 or not all(np.isfinite(rec[k]) for k in keys):
+                raise AssertionError(f"pvrcnn {name}: results {rec}")
+            detail = ", ".join(f"{k} {rec[k]:.6f}" for k in keys if "moderate" in k)
+        record[name] = rec
+        log("pvrcnn", f"{name}: {rec['seconds']:.3f} s; {detail}; kernel launches {rec['launches']}")
+    return record
+
+
+def pvrcnn_plusplus(sets, batch, train_batch, seed):
+    """PV-RCNN++ (``entry.PVRCNN_PLUSPLUS`` over the config) at b1 on the
+    card with seeded weights: one eval forward (SPC keypoints about the
+    proposals, boxes finite) and its time, then one train step with the
+    config's optimizer on jittered gt boxes handed in as ROIs, sampled
+    before the PFE (reg foreground, reg and corner losses and the reg
+    tower's gradient nonzero and finite). Returns the record."""
+    from pcp_tpu_torch.entry import CFG_PVRCNN, PVRCNN_PLUSPLUS, build
+    from pcp_tpu_torch.models.roi_heads import pvrcnn_head
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state
+
+    cfg, _, model = build(CFG_PVRCNN, device="cuda", set_cfgs=sets + PVRCNN_PLUSPLUS)
+    sd = seeded_state_dict(model, seed)
+    model.load_state_dict(sd, strict=True)
+    b1 = {k: v[:1] for k, v in batch.items()}
+    zero = {k: 0 for k in bs.launches}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(b1)
+        torch.cuda.synchronize()
+        counts = dict(bs.launches)
+        fwd_ms = cuda_ms(lambda: model(b1), warmup=0, iters=2)
+    fbd = out["final_box_dicts"]
+    rec = {"set_cfgs": PVRCNN_PLUSPLUS, "forward_launches": counts, "forward_ms": fwd_ms,
+           "forward_peak_bytes": torch.cuda.max_memory_allocated(),
+           "keypoints_valid": int(out["point_coords_mask"].sum()),
+           "points_valid": int(b1["points_mask"].sum()),
+           "boxes_valid": int(fbd["pred_valid"].sum())}
+    if counts != zero or not torch.isfinite(fbd["pred_boxes"]).all() or not rec["boxes_valid"]:
+        raise AssertionError(f"pvrcnn++: launches {counts}, or boxes not finite or missing")
+
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model, total_iters_each_epoch=1,
+                                   total_epochs=1)
+    create_train_state(model, optimizer, seed)
+    model.load_state_dict(sd, strict=True)
+    model.vfe.model_cfg["MAX_VOXELS"] = PVRCNN_BUDGETS["train"]
+    t1 = {k: v[:1] for k, v in train_batch.items()}
+    given = dict(t1, **jittered_gt_rois(t1["gt_boxes"], seed))
+    drawn, assign = [], pvrcnn_head.assign_targets
+    pvrcnn_head.assign_targets = lambda *a, **k: drawn.append(assign(*a, **k)) or drawn[-1]
+    torch.cuda.reset_peak_memory_stats()
+    bs.reset_launches()
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(given)
+        out["loss"].backward()
+        optimizer.step()
+        end.record()
+        end.synchronize()
+    finally:
+        pvrcnn_head.assign_targets = assign
+    tb = {k: v.item() for k, v in out["tb_dict"].items()}
+    reg_grad = max(p.grad.abs().max().item() for p in model.roi_head.reg_layers.parameters())
+    rec.update(train_launches=dict(bs.launches), train_step_ms=start.elapsed_time(end),
+               train_peak_bytes=torch.cuda.max_memory_allocated(), train_loss=out["loss"].item(),
+               train_tb=tb, train_reg_foreground=int(drawn[0]["reg_valid_mask"].sum()),
+               train_reg_grad_max=reg_grad,
+               train_keypoints_valid=int(out["point_coords_mask"].sum()))
+    log("pvrcnn", f"PV-RCNN++ b1 x {b1['points'].shape[1]}: forward {fwd_ms:.6f} ms, "
+                  f"{rec['keypoints_valid']} of {model.pfe.num_keypoints} keypoints valid (SPC "
+                  f"about the proposals), {rec['boxes_valid']} boxes, peak memory "
+                  f"{rec['forward_peak_bytes'] / 2**30:.3f} GiB; a train step on {KITTI_ROI_COPIES} jittered copies of each gt box as its "
+                  f"ROIs: {rec['train_step_ms']:.6f} ms, loss {rec['train_loss']:.6f}, peak memory "
+                  f"{rec['train_peak_bytes'] / 2**30:.3f} GiB, {rec['train_keypoints_valid']} "
+                  f"keypoints valid, foreground ROIs for the reg loss {rec['train_reg_foreground']}, "
+                  f"the reg tower's largest |g| {reg_grad:.6e}; kernel launches {counts}, "
+                  f"{rec['train_launches']}; terms " + ", ".join(f"{k} {v:.6f}" for k, v in tb.items()))
+    if rec["train_launches"] != zero or not np.isfinite(rec["train_loss"]) or not (
+            rec["train_reg_foreground"] > 0 and tb["rcnn_loss_reg"] > 0
+            and tb["rcnn_loss_corner"] > 0 and 0 < reg_grad < float("inf")):
+        raise AssertionError(f"pvrcnn++: the train step {rec}")
+    return rec
+
+
+def phase_pvrcnn(seed):
+    """Phase pvrcnn: the custom dataset's infos on a fake tree, PV-RCNN
+    (``custom_models/pv_rcnn.yaml`` with the z range override) at full
+    width on the card (eval forward and its stages, train steps, b1 against
+    the CPU), and the CLI stages. Returns (launches of each kernel in a
+    forward and in a train step, the record)."""
+    import shutil
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_fake_kitti import make_custom_tree
+
+    from pcp_tpu_torch.datasets import build_dataloader
+    from pcp_tpu_torch.datasets.custom.custom_dataset import create_custom_infos
+    from pcp_tpu_torch.entry import CFG_PVRCNN, build
+    from pcp_tpu_torch.models.roi_heads import pvrcnn_head
+    from pcp_tpu_torch.ops import bev_scatter as bs
+    from pcp_tpu_torch.train.optimization import build_optimizer
+    from pcp_tpu_torch.train.train_state import create_train_state
+    from pcp_tpu_torch.train.train_utils import _to_device_batch
+
+    root = REPO / "build" / "pvrcnn"
+    shutil.rmtree(root, ignore_errors=True)
+    data = make_custom_tree(root / "data", PVRCNN_TRAIN_IDS, PVRCNN_VAL_IDS, PVRCNN_POINTS, seed)
+    sets = pvrcnn_sets(data, "test")
+    cfg, info, model = build(CFG_PVRCNN, device="cuda", set_cfgs=sets)
+    t0 = time.perf_counter()
+    create_custom_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, data, data)
+    record = {"create_custom_infos_seconds": time.perf_counter() - t0, "grid": list(info.grid_size)}
+    sd = seeded_state_dict(model, seed)
+    model.load_state_dict(sd, strict=True)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=b,
+                                    training=False, workers=0)
+    batch = _to_device_batch(next(iter(loader)), torch.device("cuda"))
+    n = batch["points"].shape[1]
+    zero = {k: 0 for k in bs.launches}
+    with torch.inference_mode():
+        bs.reset_launches()
+        out = model(batch)
+        torch.cuda.synchronize()
+        counts = dict(bs.launches)
+    fbd = out["final_box_dicts"]
+    limit = int(np.prod(out["sparse_dims"]))
+    voxels = (out["voxel_ids"] < limit).sum(1).tolist()
+    log("pvrcnn", f"custom infos in {record['create_custom_infos_seconds']:.3f} s; PV-RCNN, one b{b} "
+                  f"x {n} forward at full width on the {info.grid_size} grid: kernel launches "
+                  f"{counts}; voxels {voxels}; keypoints {tuple(out['point_coords'].shape)}; "
+                  f"proposals {tuple(out['rois'].shape)}, valid {out['roi_valid'].sum(1).tolist()}; "
+                  f"boxes {tuple(fbd['pred_boxes'].shape)}, valid per cloud "
+                  f"{fbd['pred_valid'].sum(1).tolist()}")
+    if counts != zero or not torch.isfinite(fbd["pred_boxes"]).all() \
+            or not fbd["pred_valid"].any(1).all() or n != PVRCNN_POINTS \
+            or out["spatial_features"].shape[1] != 256:
+        raise AssertionError(f"pvrcnn: launches {counts}, or boxes not finite or missing, or {n} "
+                             "points, or the BEV's width")
+    record.update({"config": CFG_PVRCNN, "set_cfgs": sets, "batch": b, "points": n,
+                   "voxels": voxels, "forward_launches": counts})
+
+    rec = _pvrcnn_card_vs_cpu(model, sd, sets, batch, cfg)
+    log("pvrcnn", "b1 card against CPU: FPS ({fps_calls} calls, {keypoints_valid} valid keypoints) "
+                  "and ball-query ({ball_query_calls}) indices equal; the proposal and the final NMS's "
+                  "kept indices ({nms_kept}) equal on the card's inputs; ".format(**rec)
+        + "; ".join(f"{k} {rec[k]['max_abs_err']:.3e} (CPU spread {rec[k]['cpu_spread']:.3e}, "
+                    f"limit {rec[k]['limit']:.3e})" for k in PVRCNN_TOL)
+        + f"; {rec['boxes_matched']} boxes matched; the CPU's forward {rec['cpu_seconds']:.3f} s")
+    record["card_vs_cpu"] = rec
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(batch), warmup=0, iters=3)  # warm: the counted forward
+        stages = stage_ms(pvrcnn_stages(model, cfg), batch, iters=1)
+    peak = torch.cuda.max_memory_allocated()
+    record.update(forward_ms=fwd_ms, stages_ms=stages, forward_peak_bytes=peak)
+    log("pvrcnn", f"forward b{b} x {n}: {fwd_ms:.6f} ms; stages "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in stages.items())
+                  + f" ms; peak memory {peak / 2**30:.3f} GiB")
+
+    _, train_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=b,
+                                          training=True, workers=0, seed=seed)
+    train_batch = _to_device_batch(next(iter(train_loader)), torch.device("cuda"))
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, model,
+                                   total_iters_each_epoch=PVRCNN_TRAIN_STEPS, total_epochs=1)
+    create_train_state(model, optimizer, seed)
+    model.load_state_dict(sd, strict=True)
+    model.vfe.model_cfg["MAX_VOXELS"] = PVRCNN_BUDGETS["train"]
+    given = dict(train_batch, **jittered_gt_rois(train_batch["gt_boxes"], seed))
+    drawn, assign = [], pvrcnn_head.assign_targets
+    pvrcnn_head.assign_targets = lambda *a, **k: drawn.append(assign(*a, **k)) or drawn[-1]
+    losses, step_ms, peaks, tbs = [], [], [], []
+    bs.reset_launches()
+    try:
+        for i in range(PVRCNN_TRAIN_STEPS):  # make_train_step's step, its peaks read between
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            optimizer.zero_grad(set_to_none=True)
+            out = model(given if i == PVRCNN_TRAIN_STEPS - 1 else train_batch)
+            forward_peak = torch.cuda.max_memory_allocated()
+            out["loss"].backward()
+            optimizer.step()
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(out["loss"].item())
+            peaks.append((forward_peak, torch.cuda.max_memory_allocated()))
+            tbs.append({k: v.item() for k, v in out["tb_dict"].items()})
+    finally:
+        pvrcnn_head.assign_targets = assign
+    step_counts = dict(bs.launches)
+    gt = int((train_batch["gt_boxes"][..., 7] > 0).sum())
+    reg_fg = [int(t["reg_valid_mask"].sum()) for t in drawn]
+    reg_grad = max(p.grad.abs().max().item() for p in model.roi_head.reg_layers.parameters())
+    record.update(train_losses=losses, train_step_ms=step_ms, train_peak_bytes=peaks,
+                  train_gt_boxes=gt, train_tb=tbs, train_reg_foreground=reg_fg,
+                  train_reg_grad_max=reg_grad)
+    log("pvrcnn", f"{PVRCNN_TRAIN_STEPS} train steps on one b{b} batch ({gt} gt boxes), a voxel "
+                  f"budget of {PVRCNN_BUDGETS['train']}, the last on {KITTI_ROI_COPIES} jittered "
+                  f"copies of each gt box as its ROIs: losses {' '.join(f'{v:.6f}' for v in losses)}, "
+                  f"step ms {' '.join(f'{v:.6f}' for v in step_ms)}, peak memory (forward+loss, "
+                  "step) " + ", ".join(f"{f / 2**30:.3f} / {t / 2**30:.3f} GiB" for f, t in peaks)
+                  + f"; kernel launches {step_counts}; foreground ROIs for the reg loss {reg_fg}, "
+                  f"the reg tower's largest |g| {reg_grad:.6e} in the last step; terms of each step "
+                  + " | ".join(", ".join(f"{k} {v:.6f}" for k, v in t.items()) for t in tbs))
+    if step_counts != zero or not np.isfinite(losses).all():
+        raise AssertionError(f"pvrcnn: train launches {step_counts}, losses {losses}")
+    last = tbs[-1]
+    if not (reg_fg[-1] > 0 and last["rcnn_loss_reg"] > 0 and last["rcnn_loss_corner"] > 0
+            and 0 < reg_grad < float("inf")):
+        raise AssertionError(f"pvrcnn: the step on given ROIs trained no reg tower: foreground "
+                             f"{reg_fg}, terms {last}, reg |g| {reg_grad}")
+    del model, out, optimizer
+    torch.cuda.empty_cache()
+    record["plusplus"] = pvrcnn_plusplus(sets, batch, train_batch, seed)
+    torch.cuda.empty_cache()
+    record["cli"] = pvrcnn_cli(root, data, seed)
+    return counts, step_counts, record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4320,6 +4723,15 @@ def main(argv=None):
         record["launches_per_kitti_train_step"] = kitti_step[kernel]
         record["launches_in_kitti_cli"] = {name: rec["launches"][kernel]
                                            for name, rec in kitti["cli"].items()}
+    pvrcnn_forward, pvrcnn_step, pvrcnn = phase_pvrcnn(args.seed)
+    lap("pvrcnn")
+    for kernel, record in records.items():
+        record["launches_per_pvrcnn_forward"] = pvrcnn_forward[kernel]
+        record["launches_per_pvrcnn_train_step"] = pvrcnn_step[kernel]
+        record["launches_in_pvrcnn_cli"] = {name: rec["launches"][kernel]
+                                            for name, rec in pvrcnn["cli"].items()}
+        record["launches_per_pvrcnn_plusplus_forward"] = pvrcnn["plusplus"]["forward_launches"][kernel]
+        record["launches_per_pvrcnn_plusplus_train_step"] = pvrcnn["plusplus"]["train_launches"][kernel]
     # bev_scatter_runs keeps "launches": null: no setting of either package reaches it
     print(json.dumps({k: v for k, v in bench.items() if k != "profile"}))
     print(json.dumps({"kernels": list(records.values()), "train": train, "senders": senders,
@@ -4327,7 +4739,7 @@ def main(argv=None):
                       "bench_profile": bench["profile"], "serving": serving, "dp": dp,
                       "bf16_train": bf16,
                       "disco": disco, "pipeline": pipeline, "a11": a11, "jr": jr,
-                      "kitti": kitti, "phase_seconds": seconds}))
+                      "kitti": kitti, "pvrcnn": pvrcnn, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

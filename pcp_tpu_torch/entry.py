@@ -18,7 +18,11 @@ points; ``CFG_SECOND_EGO``: 13-feature points with MoDAR rows) returns what
 the pillar models of the same role return. PointRCNN (``CFG_POINTRCNN``)
 takes KITTI's 4-feature points (``MAX_POINTS_PER_SAMPLE`` 16384, the
 ``sample_points`` count) and returns the refined boxes with the ROI stage's
-class labels. The model is in eval mode with
+class labels. PV-RCNN (``CFG_PVRCNN``, the custom dataset's 4-feature
+points, ``MAX_POINTS_PER_SAMPLE`` 32768) needs ``PVRCNN_Z_RANGE`` among
+its ``set_cfgs``: the shipped z range of [-3, 1] m at 0.2 m leaves its
+sparse backbone's output with no z slice, in both packages. The model is
+in eval mode with
 initial weights; load trained ones with ``model.load_state_dict`` (see
 ``utils/jax_weights.py``).
 
@@ -48,6 +52,34 @@ CFG_SECOND_RSU = "tools/cfgs/v2x_sim_models/v2x_second_rsu.yaml"
 CFG_SECOND_EGO = "tools/cfgs/v2x_sim_models/v2x_second_ego.yaml"
 # PointRCNN on KITTI
 CFG_POINTRCNN = "tools/cfgs/kitti_models/pointrcnn.yaml"
+# PV-RCNN on the custom dataset, and the z range it runs at: 40 slices of the
+# shipped 0.2 m, the count VoxelBackBone8x's strides are built for (KITTI's
+# [-3, 1] m at 0.1 m); every model width as published
+CFG_PVRCNN = "tools/cfgs/custom_models/pv_rcnn.yaml"
+PVRCNN_Z_RANGE = ["DATA_CONFIG.POINT_CLOUD_RANGE", "[-70.4, -40, -3, 70.4, 40, 5]"]
+# PV-RCNN++ as --set pairs over CFG_PVRCNN: keypoints by SPC sampling about
+# the proposals, VectorPool for the raw points and the ROI grid, at the
+# settings the JAX package's PV-RCNN++ test holds
+# (tests/test_pvrcnn_plusplus.py::_ppcfg); no shipped config uses it
+PVRCNN_PLUSPLUS = [
+    "MODEL.NAME", "PVRCNNPlusPlus",
+    "MODEL.PFE.SAMPLE_METHOD", "SPC",
+    "MODEL.PFE.SPC_SAMPLING", repr({"NUM_SECTORS": 6, "SAMPLE_RADIUS_WITH_ROI": 1.6}),
+    "MODEL.PFE.SA_LAYER.raw_points", repr({
+        "NAME": "VectorPoolAggregationModuleMSG", "NUM_REDUCED_CHANNELS": 1,
+        "NUM_CHANNELS_OF_LOCAL_AGGREGATION": 8, "LOCAL_AGGREGATION_TYPE": "local_interpolation",
+        "MSG_POST_MLPS": [16],
+        "GROUP_CFG_0": {"NUM_LOCAL_VOXEL": [2, 2, 2], "MAX_NEIGHBOR_DISTANCE": 0.4,
+                        "NEIGHBOR_NSAMPLE": 8, "POST_MLPS": [16, 16]},
+        "GROUP_CFG_1": {"NUM_LOCAL_VOXEL": [3, 3, 3], "MAX_NEIGHBOR_DISTANCE": 1.2,
+                        "NEIGHBOR_NSAMPLE": 8, "POST_MLPS": [16, 16]}}),
+    "MODEL.ROI_HEAD.ROI_GRID_POOL", repr({
+        "NAME": "VectorPoolAggregationModuleMSG", "GRID_SIZE": 3, "NUM_REDUCED_CHANNELS": 16,
+        "NUM_CHANNELS_OF_LOCAL_AGGREGATION": 8, "LOCAL_AGGREGATION_TYPE": "voxel_avg_pool",
+        "MSG_POST_MLPS": [32],
+        "GROUP_CFG_0": {"NUM_LOCAL_VOXEL": [2, 2, 2], "MAX_NEIGHBOR_DISTANCE": 0.8,
+                        "NEIGHBOR_NSAMPLE": 8, "POST_MLPS": [32]}}),
+]
 
 
 def build(cfg_path=CFG_EGO, device="cuda", pre_reduce=None, set_cfgs=None):

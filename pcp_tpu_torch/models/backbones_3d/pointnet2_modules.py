@@ -9,13 +9,36 @@ inverse-distance 3-NN propagation, over the padded channel-last layout
 rules: a padding query gives zeros and a False mask, an empty ball gives
 zeros. pcdet's names: ``mlps.{i}.{3j}`` (a 1x1 layer, here a ``Linear``),
 ``mlps.{i}.{3j+1}`` (its BN) and, without BN (PointRCNN's head, ``USE_BN:
-False``), ``mlps.{i}.{2j}`` (a biased ``Linear``) before its ReLU.
+False``), ``mlps.{i}.{2j}`` (a biased ``Linear``) before its ReLU. The
+ball queries take their (B, M, N) squared distances a block of query rows at
+a time, at most ``QUERY_BLOCK_ENTRIES`` of them (PV-RCNN's grid pool asks
+64800 queries a sample of 4096 keypoints): each row's indices are those of
+the whole matrix.
 """
 import torch
 from torch import nn
 
 from ...ops import pointnet2 as pn2
 from ..model_utils.norm import MaskedBatchNorm
+
+QUERY_BLOCK_ENTRIES = 1 << 26
+
+
+def ball_query_blocks(radii, nsamples, xyz, new_xyz, mask, new_mask):
+    """Each radius' ``pn2.ball_query`` of every query of ``new_xyz``, the
+    squared distances taken once a block of query rows -> [(idx, empty)]."""
+    b, m, n = xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+    rows = max(1, QUERY_BLOCK_ENTRIES // max(1, b * n))
+    blocks = []
+    for lo in range(0, m, rows):
+        q, qm = new_xyz[:, lo:lo + rows], new_mask[:, lo:lo + rows]
+        d2 = pn2.square_distance(q, xyz, a_mask=qm, b_mask=mask)
+        blocks.append([pn2.ball_query(r, s, xyz, q, mask=mask, new_mask=qm, d2=d2)
+                       for r, s in zip(radii, nsamples)])
+    if len(blocks) == 1:
+        return blocks[0]
+    return [tuple(torch.cat([blk[i][j] for blk in blocks], dim=1) for j in range(2))
+            for i in range(len(radii))]
 
 
 class SharedMLP(nn.Sequential):
@@ -60,7 +83,6 @@ class PointnetSAModuleMSG(nn.Module):
         b, n, _ = xyz.shape
         if mask is None:
             mask = torch.ones((b, n), dtype=torch.bool, device=xyz.device)
-        d2 = None
         if self.npoint is not None:
             if new_xyz is None:
                 fps_idx = pn2.farthest_point_sample(xyz, self.npoint, mask)
@@ -68,8 +90,8 @@ class PointnetSAModuleMSG(nn.Module):
                 new_mask = torch.gather(mask, 1, fps_idx)
             elif new_mask is None:
                 new_mask = torch.ones(new_xyz.shape[:2], dtype=torch.bool, device=xyz.device)
-            # one distance matrix serves every radius
-            d2 = pn2.square_distance(new_xyz, xyz, a_mask=new_mask, b_mask=mask)
+            # one distance matrix a block of queries serves every radius
+            queries = ball_query_blocks(self.radii, self.nsamples, xyz, new_xyz, mask, new_mask)
         else:
             new_xyz = xyz.new_zeros((b, 1, 3))
             new_mask = torch.ones((b, 1), dtype=torch.bool, device=xyz.device)
@@ -77,8 +99,7 @@ class PointnetSAModuleMSG(nn.Module):
         outs = []
         for i, mlp in enumerate(self.mlps):
             if self.npoint is not None:
-                idx, empty = pn2.ball_query(self.radii[i], self.nsamples[i], xyz, new_xyz,
-                                            mask=mask, new_mask=new_mask, d2=d2)
+                idx, empty = queries[i]
                 parts = [pn2.group_points(xyz, idx) - new_xyz[:, :, None, :]]
                 if features is not None:
                     parts.append(pn2.group_points(features, idx))

@@ -140,6 +140,8 @@ class VoxelResBackBone8x(nn.Module):
                 + [SparseBasicBlock(ch) for _ in range(num_res_blocks)]))
             cin = ch
         self.conv_out = StridedConvBlock(128, 128, (3, 1, 1), (2, 1, 1), 0)
+        # the width of each level of multi_scale_3d_features
+        self.level_channels = {"x_conv1": 16, **{f"x_{name}": ch for name, ch, *_ in LEVELS}}
 
     def forward(self, batch):
         ids, dims = batch["voxel_ids"], batch["sparse_dims"]

@@ -20,7 +20,9 @@ and ``AnchorHeadSingle``):
   batch size is the global batch's; every other normaliser is per sample;
 * three 1x1 convs, pcdet's ``conv_cls``, ``conv_box`` and ``conv_dir_cls``;
   their (B, A*C, H, W) output is read channels-last, so that the anchors
-  flatten as (gy, gx, A_loc) as in the JAX package.
+  flatten as (gy, gx, A_loc) as in the JAX package;
+* the decoded boxes in eval mode, and in training too where an ROI head
+  follows (``predict_boxes_when_training``, PV-RCNN's proposals).
 
 Each quotient that a floor reads (``limit_period``, the direction target)
 divides by a float32 tensor, as the JAX package divides: on the card a
@@ -123,7 +125,7 @@ def add_sin_difference(boxes1, boxes2, dim=6):
 
 class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class, class_names, grid_size,
-                 point_cloud_range, voxel_size, bf16=False):
+                 point_cloud_range, voxel_size, bf16=False, predict_boxes_when_training=False):
         super().__init__()
         if bf16 or model_cfg.get("BF16", False):
             raise NotImplementedError("MODEL.BF16 on AnchorHeadSingle is not ported yet "
@@ -140,6 +142,7 @@ class AnchorHeadSingle(nn.Module):
                                       "ported yet (ROADMAP A11.4)")
         self.model_cfg = model_cfg
         self.num_class = num_class
+        self.predict_boxes_when_training = predict_boxes_when_training
         self.class_names = list(class_names)
         self.box_coder = _BOX_CODERS[ta_cfg["BOX_CODER"]](
             num_dir_bins=int(ta_cfg.get("NUM_DIR_BINS", 6)), **dict(ta_cfg.get("BOX_CODER_CONFIG", {})))
@@ -189,7 +192,7 @@ class AnchorHeadSingle(nn.Module):
                              "dir_cls_preds": dir_preds}
         if self.training:
             out["head_targets"] = self.assign_targets(batch["gt_boxes"])
-        else:
+        if not self.training or self.predict_boxes_when_training:
             out["batch_cls_preds"], out["batch_box_preds"] = self.generate_predicted_boxes(
                 cls_preds, box_preds, dir_preds)
             out["cls_preds_normalized"] = False

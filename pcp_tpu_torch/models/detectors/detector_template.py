@@ -7,10 +7,13 @@ dict through them in the JAX package's order: DiscoNet's frozen BEV makers
 (``bev_maker_rsu``, ``bev_maker_car``, ``bev_maker_early``), the
 distillation ``teacher``, ``vfe``, the sparse ``backbone_3d`` (SECOND),
 ``map_to_bev``, ``backbone_2d``, the ``corrector`` (HunterJr or the oracle),
-DiscoNet's ``v2x_mid_fusion``, the ``dense_head``, and PointRCNN's
-``point_head`` and ``roi_head`` behind its point backbone (PointNet2MSG,
-which reads the raw points where no VFE precedes it). The width the 2D
-backbone reads is ``MAP_TO_BEV.NUM_BEV_FEATURES`` (for ``HeightCompression``
+DiscoNet's ``v2x_mid_fusion``, the ``dense_head``, and the two-stage
+models' ``point_head`` and ``roi_head`` (PointRCNN's behind its point
+backbone, PointNet2MSG, which reads the raw points where no VFE precedes it;
+PV-RCNN's behind the PFE, whose keypoint features they read: the point head
+those before the fusion under ``USE_POINT_FEATURES_BEFORE_FUSION``). Where
+an ROI head follows, the dense head decodes its boxes in training too. The
+width the 2D backbone reads is ``MAP_TO_BEV.NUM_BEV_FEATURES`` (for ``HeightCompression``
 the 3D backbone's 128 channels times its 2 z slices). The corrector's width
 is the JAX package's rule: the backbone's upsampled or last filters, and
 for a backbone that names neither (the SCConv backbones) the scatter's
@@ -30,15 +33,12 @@ from torch import nn
 MAKER_KEYS = ("BEV_MAKER_RSU", "BEV_MAKER_CAR", "BEV_MAKER_EARLY")
 MODULE_KEYS = (tuple((key, key.lower()) for key in MAKER_KEYS)
                + (("TEACHER", "teacher"), ("VFE", "vfe"), ("BACKBONE_3D", "backbone_3d"),
-                  ("MAP_TO_BEV", "map_to_bev"),
+                  ("MAP_TO_BEV", "map_to_bev"), ("PFE", "pfe"),
                   ("BACKBONE_2D", "backbone_2d"), ("CORRECTOR", "corrector"),
                   ("V2X_MID_FUSION", "v2x_mid_fusion"), ("DENSE_HEAD", "dense_head"),
                   ("POINT_HEAD", "point_head"), ("ROI_HEAD", "roi_head")))
 # MODEL keys that configure no module
 PLAIN_KEYS = ("NAME", "POST_PROCESSING", "BF16", "OracleCorrector")
-# MODEL keys of the JAX package's other models and the ROADMAP item that
-# holds each
-NOT_PORTED_KEYS = {"PFE": "A11.6"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +81,7 @@ class Detector3DTemplate(nn.Module):
     def build_module_list(self):
         from ..backbones_2d import build_backbone_2d
         from ..backbones_3d import build_backbone_3d
+        from ..backbones_3d.pfe import build_pfe
         from ..bev_layers import build_bev_maker, build_corrector, build_teacher, build_v2x_fusion
         from ..dense_heads import build_dense_head
         from ..dense_heads.point_head import build_point_head
@@ -92,9 +93,7 @@ class Detector3DTemplate(nn.Module):
         known = {key for key, _ in MODULE_KEYS} | set(PLAIN_KEYS)
         extra = sorted(k for k, v in cfg.items() if v is not None and k not in known)
         if extra:
-            items = sorted({NOT_PORTED_KEYS.get(k, "A11") for k in extra})
-            raise NotImplementedError(f"MODEL keys {extra} are not ported yet "
-                                      f"(ROADMAP {', '.join(items)})")
+            raise NotImplementedError(f"MODEL keys {extra} are not ported yet (ROADMAP A11)")
         # MODEL.BF16: the backbone's and the head's conv stacks serve in bfloat16
         bf16 = bool(cfg.get("BF16", False))
         bb_cfg = cfg.get("BACKBONE_2D") or {}
@@ -130,6 +129,12 @@ class Detector3DTemplate(nn.Module):
             self.add_module("map_to_bev", build_map_to_bev(cfg["MAP_TO_BEV"], info))
             names.append("map_to_bev")
             num_bev_features = int(cfg["MAP_TO_BEV"]["NUM_BEV_FEATURES"])
+        if cfg.get("PFE") is not None:
+            levels = self.backbone_3d.level_channels if "backbone_3d" in names else {}
+            self.add_module("pfe", build_pfe(cfg["PFE"], info, num_bev_features,
+                                             info.num_point_features, levels))
+            names.append("pfe")
+            num_point_features = self.pfe.num_point_features
         corrector_width = num_bev_features
         if cfg.get("BACKBONE_2D") is not None:
             bcfg = cfg["BACKBONE_2D"]
@@ -149,13 +154,16 @@ class Detector3DTemplate(nn.Module):
                             build_v2x_fusion(cfg["V2X_MID_FUSION"], info, num_bev_features))
             names.append("v2x_mid_fusion")
         if cfg.get("DENSE_HEAD") is not None:
-            self.add_module("dense_head", build_dense_head(cfg["DENSE_HEAD"], info,
-                                                           num_bev_features, self.num_class,
-                                                           bf16=bf16))
+            self.add_module("dense_head", build_dense_head(
+                cfg["DENSE_HEAD"], info, num_bev_features, self.num_class, bf16=bf16,
+                predict_boxes_when_training=cfg.get("ROI_HEAD") is not None))
             names.append("dense_head")
         if cfg.get("POINT_HEAD") is not None:
+            width = num_point_features
+            if cfg["POINT_HEAD"].get("USE_POINT_FEATURES_BEFORE_FUSION", False):
+                width = self.pfe.num_point_features_before_fusion
             self.add_module("point_head", build_point_head(
-                cfg["POINT_HEAD"], num_point_features, self.num_class,
+                cfg["POINT_HEAD"], width, self.num_class,
                 predict_boxes_when_training=cfg.get("ROI_HEAD") is not None))
             names.append("point_head")
         if cfg.get("ROI_HEAD") is not None:

@@ -1,10 +1,11 @@
 from .pointrcnn_head import PointRCNNHead
+from .pvrcnn_head import PVRCNNHead
 
-__all__ = {"PointRCNNHead": PointRCNNHead}
+__all__ = {"PointRCNNHead": PointRCNNHead, "PVRCNNHead": PVRCNNHead}
 
 # the JAX package's other ROI heads and the ROADMAP item that holds each
-NOT_PORTED = {"MPPNetHead": "A11.6", "PartA2FCHead": "A11.6", "PVRCNNHead": "A11.6",
-              "SECONDHead": "A11.6", "VoxelRCNNHead": "A11.6"}
+NOT_PORTED = {"MPPNetHead": "A11.6", "PartA2FCHead": "A11.6", "SECONDHead": "A11.6",
+              "VoxelRCNNHead": "A11.6"}
 
 
 def build_roi_head(cfg, num_class, input_channels):

@@ -13,7 +13,7 @@ layers as ``Linear``).
 
 The sampling priorities (``roi_head_template.sample_rois_for_rcnn``) are
 drawn from ``self.generator`` (a CPU ``torch.Generator``, seed 0 until
-:meth:`PointRCNNHead.reseed`), or taken from the batch's
+:meth:`RoIHeadTemplate.reseed`), or taken from the batch's
 ``roi_sampling_priorities`` (B, 3, P) where it has them: the parity tests
 hand in the JAX package's draws there.
 """
@@ -49,16 +49,6 @@ class PointRCNNHead(RoIHeadTemplate):
         self.cls_layers = make_fc_layers(channels, model_cfg["CLS_FC"], num_class, dp)
         self.reg_layers = make_fc_layers(channels, model_cfg["REG_FC"],
                                          self.box_coder.code_size * num_class, dp)
-        self.generator = torch.Generator().manual_seed(0)
-
-    def reseed(self, seed):
-        self.generator.manual_seed(int(seed))
-
-    def sampling_priorities(self, batch, num_rois):
-        pri = batch.get("roi_sampling_priorities")
-        if pri is None:
-            pri = torch.rand((batch["rois"].shape[0], 3, num_rois), generator=self.generator)
-        return pri.to(batch["rois"].device)
 
     def forward(self, batch):
         out = proposal_layer(dict(batch), self.model_cfg["NMS_CONFIG"][

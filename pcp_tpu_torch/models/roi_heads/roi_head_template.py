@@ -182,12 +182,27 @@ def make_fc_layers(in_channels, fc_list, out_channels, dp_ratio):
 
 
 class RoIHeadTemplate(nn.Module):
+    """The losses and decoding, and the ROI sampling's priorities: drawn from
+    ``self.generator`` (a CPU ``torch.Generator``, seed 0 until
+    :meth:`reseed`), or the batch's ``roi_sampling_priorities`` (B, 3, P)
+    where it has them."""
+
     def __init__(self, model_cfg, num_class):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
         coder_cfg = model_cfg["TARGET_CONFIG"].get("BOX_CODER_CONFIG", {})
         self.box_coder = ResidualCoder(**{k.lower(): v for k, v in coder_cfg.items()})
+        self.generator = torch.Generator().manual_seed(0)
+
+    def reseed(self, seed):
+        self.generator.manual_seed(int(seed))
+
+    def sampling_priorities(self, batch, num_rois):
+        pri = batch.get("roi_sampling_priorities")
+        if pri is None:
+            pri = torch.rand((batch["rois"].shape[0], 3, num_rois), generator=self.generator)
+        return pri.to(batch["rois"].device)
 
     def get_box_cls_layer_loss(self, fwd):
         cfg = self.model_cfg["LOSS_CONFIG"]

@@ -9,7 +9,9 @@ features, with the JAX package's index rules, held exactly:
 * ball query keeps the first ``nsample`` in-radius points in index order and
   fills the remaining slots with the first; an empty ball gives zeros;
 * three_nn takes the three nearest by squared distance, ties to the lower
-  index (``lax.top_k``), and returns Euclidean distances.
+  index (``lax.top_k``), and returns Euclidean distances;
+* ``norm3`` is ``jnp.linalg.norm`` over 3 coordinates (VectorPool's and
+  SPC sampling's distances).
 
 Squared distances are ``|a|^2 + |b|^2 - 2 a.b``, the JAX package's form
 with the rounding of its jitted code on the CPU (XLA fuses every sum of
@@ -23,7 +25,7 @@ of a few batched ops each, for the whole batch at once.
 import torch
 
 
-def _fma(x, y, z):
+def fma(x, y, z):
     """``x * y + z`` rounded once in float32: the product of two float32
     values is exact in float64, and so, but for a double rounding about once
     in 2^29, is the sum. In float64, plain ops."""
@@ -35,7 +37,32 @@ def _fma(x, y, z):
 def _dot3(a, b):
     """Sum over the last axis of 3, as XLA's fused multiply-reduce on the
     CPU: ``fma(a2, b2, fma(a1, b1, a0 * b0))``."""
-    return _fma(a[..., 2], b[..., 2], _fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def norm3(v):
+    """Euclidean norm over the last axis of 3, as the JAX package's jitted
+    ``jnp.linalg.norm`` on the CPU rounds it in float32: the correctly
+    rounded square root of the fused sum of squares (``_dot3``)."""
+    if v.dtype != torch.float32:
+        return torch.sqrt(_dot3(v, v))
+    return torch.sqrt(_dot3(v, v).double()).float()
+
+
+def _dot3_pairs(a, b):
+    """``_dot3(a[..., :, None, :], b[..., None, :, :])``, (B, M, N) float32 for
+    float32 a (B, M, 3) and b (B, N, 3), with one float64 buffer: the
+    product of two float32 values is exact in float64, so ``addcmul_`` there
+    is ``fma``'s single rounding."""
+    ad, bd = a.double(), b.double()
+    t = a[..., :, None, 0] * b[..., None, :, 0]
+    acc = t.double()
+    for i in (1, 2):
+        acc.addcmul_(ad[..., :, None, i], bd[..., None, :, i])
+        t.copy_(acc)
+        if i == 1:
+            acc.copy_(t)
+    return t
 
 
 def square_distance(a, b, a_mask=None, b_mask=None, fill=float("inf")):
@@ -44,31 +71,40 @@ def square_distance(a, b, a_mask=None, b_mask=None, fill=float("inf")):
     at 0; masked rows and columns hold ``fill``. Every sum of products is
     XLA's fused one (``_dot3``): a point coinciding with a centroid keeps the
     same rounding residue in both packages (its distance, the square root of
-    that residue, weighs in three_nn)."""
-    a, b = a.float(), b.float()
-    dot = _dot3(a[..., :, None, :], b[..., None, :, :])
-    d2 = torch.clamp(_dot3(a, a)[..., :, None] + _dot3(b, b)[..., None, :] - 2.0 * dot, min=0.0)
+    that residue, weighs in three_nn). The (B, M, N) work runs in place, and
+    the distances carry no gradient (pcdet's ball query and three-NN have
+    none)."""
+    a, b = a.detach().float(), b.detach().float()
+    d2 = _dot3(a, a)[..., :, None] + _dot3(b, b)[..., None, :]
+    d2.sub_(_dot3_pairs(a, b).mul_(2.0)).clamp_(min=0.0)
     if b_mask is not None:
-        d2 = torch.where(b_mask[..., None, :], d2, fill)
+        d2.masked_fill_(~b_mask[..., None, :], fill)
     if a_mask is not None:
-        d2 = torch.where(a_mask[..., :, None], d2, fill)
+        d2.masked_fill_(~a_mask[..., :, None], fill)
     return d2
 
 
 def farthest_point_sample(xyz, npoint, mask=None):
     """xyz (B, N, 3) -> idx (B, npoint) int64, starting at index 0; in
-    float32 whatever the dtype of ``xyz``, as the JAX package."""
-    xyz = xyz.float()
+    float32 whatever the dtype of ``xyz``, as the JAX package. Indices carry
+    no gradient."""
+    xyz = xyz.detach().float()
     b, n, _ = xyz.shape
-    valid = torch.ones((b, n), dtype=torch.bool, device=xyz.device) if mask is None else mask
+    # a masked point's running distance stays -1, under every valid one's
     mind2 = torch.full((b, n), 1e10, dtype=xyz.dtype, device=xyz.device)
+    if mask is not None:
+        mind2.masked_fill_(~mask, -1.0)
     idx = torch.zeros((b, npoint), dtype=torch.int64, device=xyz.device)
     last = idx[:, 0]
     rows = torch.arange(b, device=xyz.device)
     for k in range(1, npoint):
         d = xyz - xyz[rows, last][:, None, :]
-        mind2 = torch.minimum(mind2, _dot3(d, d))
-        last = torch.argmax(torch.where(valid, mind2, -1.0), dim=-1)
+        dd = d.double()
+        t = d[..., 0] * d[..., 0]
+        t = torch.addcmul(t.double(), dd[..., 1], dd[..., 1]).float()
+        t = torch.addcmul(t.double(), dd[..., 2], dd[..., 2]).float()
+        torch.minimum(mind2, t, out=mind2)
+        last = torch.argmax(mind2, dim=-1)
         idx[:, k] = last
     return idx
 
@@ -84,14 +120,17 @@ def ball_query(radius, nsample, xyz, new_xyz, mask=None, new_mask=None, d2=None)
     if d2 is None:
         d2 = square_distance(new_xyz, xyz, a_mask=new_mask, b_mask=mask)
     inside = d2 < radius * radius
-    empty = ~inside.any(dim=-1)
-    first = torch.where(empty, 0, torch.argmax(inside.to(torch.uint8), dim=-1))
-    rank = torch.cumsum(inside, dim=-1) - 1
-    pos = torch.where(inside & (rank < nsample), rank, nsample)
-    n = xyz.shape[1]
-    out = first[..., None].expand(*first.shape, nsample + 1).clone()
-    out.scatter_(-1, pos, torch.arange(n, device=xyz.device).expand_as(pos))
-    return out[..., :nsample], empty
+    b, m, n = inside.shape
+    # the in-radius pairs in (query, index) order, each one's rank in its ball
+    query, point = inside.reshape(b * m, n).nonzero(as_tuple=True)
+    counts = torch.bincount(query, minlength=b * m)
+    rank = torch.arange(query.shape[0], device=query.device) - (torch.cumsum(counts, 0) - counts)[query]
+    first = torch.zeros(b * m, dtype=torch.int64, device=query.device)
+    first[query[rank == 0]] = point[rank == 0]
+    out = first[:, None].expand(b * m, nsample).clone()
+    keep = rank < nsample
+    out[query[keep], rank[keep]] = point[keep]
+    return out.reshape(b, m, nsample), (counts == 0).reshape(b, m)
 
 
 def gather_points(points, idx):
@@ -129,5 +168,5 @@ def three_interpolate(features, idx, weight):
     """features (B, M, C), idx and weight (B, N, 3) -> (B, N, C)."""
     g = group_points(features, idx)
     w = weight[..., None].to(torch.promote_types(features.dtype, weight.dtype))
-    return _fma(g[..., 2, :].to(w.dtype), w[..., 2, :],
-                _fma(g[..., 1, :].to(w.dtype), w[..., 1, :], g[..., 0, :] * w[..., 0, :]))
+    return fma(g[..., 2, :].to(w.dtype), w[..., 2, :],
+               fma(g[..., 1, :].to(w.dtype), w[..., 1, :], g[..., 0, :] * w[..., 0, :]))

@@ -46,6 +46,23 @@ by leaf against the JAX package's.
     ROI head's ``cls_fc_*`` / ``cls_out`` (``reg_fc_*`` / ``reg_out``) ->
     ``roi_head.cls_layers`` (``reg_layers``), whose Dropout after the first
     width shifts the later indices by one
+  * PV-RCNN: the VSA's ``sa_rawpoints`` and ``sa_{level}`` -> ``pfe.SA_rawpoints``
+    and ``pfe.SA_layers.{k}`` (the levels in ``FEATURES_SOURCE`` order),
+    ``fusion`` / ``fusion_bn`` -> ``pfe.vsa_point_feature_fusion.{0,1}``;
+    PointHeadSimple's ``cls_*`` -> ``point_head.cls_layers``; the ROI head's
+    ``roi_grid_pool`` -> ``roi_head.roi_grid_pool_layer``,
+    ``shared_fc_{i}_0`` / ``shared_fc_{i}_bn_0`` -> ``roi_head.shared_fc_layer``
+    (a Dropout after the first width when DP_RATIO > 0), ``cls_fc_*`` and
+    ``reg_fc_*`` as PointRCNN's. The JAX package flattens the pooled grid
+    grid-major (G^3 x C) into its first shared layer, pcdet channel-major (C
+    x G^3): that layer's input columns are permuted
+    (:func:`grid_major_to_channel_major`)
+  * PV-RCNN++: a VectorPool source of the VSA or ROI grid pool
+    (:func:`_vector_pool`): ``group_{k}`` -> ``layer_{k}`` (``reduce``,
+    ``grouped_kernel`` -> ``separate_local_aggregation_layer``,
+    ``grouped_bn`` -> ``separate_local_aggregation_bn``, ``post_{i}`` /
+    ``post_bn_{i}`` -> ``post_mlps``), ``msg_post_{i}`` / ``msg_post_bn_{i}``
+    -> ``msg_post_mlps``
 """
 import numpy as np
 import torch
@@ -100,10 +117,13 @@ def state_dict_from_jax_variables(variables, model_cfg):
     if model_cfg.get("BACKBONE_3D") is not None:
         put_b3d = _pointnet2 if model_cfg["BACKBONE_3D"]["NAME"] == "PointNet2MSG" else _backbone_3d
         put_b3d(sd, params["backbone_3d"], _sub(stats, "backbone_3d"))
+    if model_cfg.get("PFE") is not None:
+        _pfe(sd, params["pfe"], _sub(stats, "pfe"), model_cfg["PFE"])
     if model_cfg.get("POINT_HEAD") is not None:
         _point_head(sd, params["point_head"], _sub(stats, "point_head"))
     if model_cfg.get("ROI_HEAD") is not None:
-        _pointrcnn_head(sd, params["roi_head"], _sub(stats, "roi_head"), model_cfg["ROI_HEAD"])
+        put_roi = _pvrcnn_head if model_cfg["ROI_HEAD"]["NAME"] == "PVRCNNHead" else _pointrcnn_head
+        put_roi(sd, params["roi_head"], _sub(stats, "roi_head"), model_cfg["ROI_HEAD"])
     if "CORRECTOR" in model_cfg and model_cfg["CORRECTOR"]["NAME"] == "HunterJr":
         _corrector(sd, params["corrector"], _sub(stats, "corrector"))
     if model_cfg.get("V2X_MID_FUSION") is not None and "v2x_mid_fusion" in params:
@@ -337,11 +357,7 @@ def _fc_tower(sd, prefix, params, stats, name, out_name, dropout_after_first=Fal
 def _pointnet2(sd, bp, bs):
     k = 0
     while f"sa_{k}" in bp:
-        i = 0
-        while f"mlp_{i}" in bp[f"sa_{k}"]:
-            _shared_mlp(sd, f"backbone_3d.SA_modules.{k}.mlps.{i}", bp[f"sa_{k}"][f"mlp_{i}"],
-                        _sub(_sub(bs, f"sa_{k}"), f"mlp_{i}"))
-            i += 1
+        _sa_msg(sd, f"backbone_3d.SA_modules.{k}", bp[f"sa_{k}"], _sub(bs, f"sa_{k}"))
         k += 1
     i = 0
     while f"fp_{i}" in bp:
@@ -352,7 +368,87 @@ def _pointnet2(sd, bp, bs):
 
 def _point_head(sd, hp, hs):
     _fc_tower(sd, "point_head.cls_layers", hp, hs, "cls", "cls_out")
-    _fc_tower(sd, "point_head.box_layers", hp, hs, "box", "box_out")
+    if "box_out" in hp:  # PointHeadBox; PointHeadSimple has the class tower alone
+        _fc_tower(sd, "point_head.box_layers", hp, hs, "box", "box_out")
+
+
+def _sa_msg(sd, prefix, sp, ss):
+    """A set abstraction's ``mlp_{i}`` -> ``{prefix}.mlps.{i}``."""
+    i = 0
+    while f"mlp_{i}" in sp:
+        _shared_mlp(sd, f"{prefix}.mlps.{i}", sp[f"mlp_{i}"], _sub(ss, f"mlp_{i}"))
+        i += 1
+
+
+def _vector_pool(sd, prefix, vp, vs):
+    """A VectorPoolAggregationModuleMSG's ``group_{k}`` -> ``{prefix}.layer_{k}``
+    (``reduce``, the grouped kernel (V, C_in, C_out) as pcdet's grouped 1x1
+    weight (V * C_out, C_in, 1), its BN, ``post_mlps``) and ``msg_post_{i}``
+    -> ``{prefix}.msg_post_mlps``."""
+    def mlp(dst, src, src_bn, p, s):
+        i = 0
+        while f"{src}_{i}" in p:
+            _put_linear(sd, f"{dst}.{3 * i}", p[f"{src}_{i}"])
+            _put_bn(sd, f"{dst}.{3 * i + 1}", p[f"{src_bn}_{i}"], _sub(s, f"{src_bn}_{i}"))
+            i += 1
+
+    k = 0
+    while f"group_{k}" in vp:
+        gp, gs, base = vp[f"group_{k}"], _sub(vs, f"group_{k}"), f"{prefix}.layer_{k}"
+        if "reduce" in gp:
+            _put_linear(sd, f"{base}.reduce", gp["reduce"])
+        kernel = np.asarray(gp["grouped_kernel"])
+        sd[f"{base}.separate_local_aggregation_layer.weight"] = _tensor(
+            kernel.transpose(0, 2, 1).reshape(-1, kernel.shape[1], 1))
+        _put_bn(sd, f"{base}.separate_local_aggregation_bn", gp["grouped_bn"],
+                _sub(gs, "grouped_bn"))
+        mlp(f"{base}.post_mlps", "post", "post_bn", gp, gs)
+        k += 1
+    mlp(f"{prefix}.msg_post_mlps", "msg_post", "msg_post_bn", vp, vs)
+
+
+def _aggregation(sd, prefix, src_cfg, params, stats):
+    put = _vector_pool if src_cfg.get("NAME") == "VectorPoolAggregationModuleMSG" else _sa_msg
+    put(sd, prefix, params, stats)
+
+
+def _pfe(sd, fp, fs, pcfg):
+    sources, sa_cfg = list(pcfg["FEATURES_SOURCE"]), pcfg["SA_LAYER"]
+    if "raw_points" in sources:
+        _aggregation(sd, "pfe.SA_rawpoints", sa_cfg["raw_points"], fp["sa_rawpoints"],
+                     _sub(fs, "sa_rawpoints"))
+    levels = [src for src in sources if src not in ("bev", "raw_points")]
+    for k, src in enumerate(levels):
+        _aggregation(sd, f"pfe.SA_layers.{k}", sa_cfg[src], fp[f"sa_{src}"], _sub(fs, f"sa_{src}"))
+    _put_linear(sd, "pfe.vsa_point_feature_fusion.0", fp["fusion"])
+    _put_bn(sd, "pfe.vsa_point_feature_fusion.1", fp["fusion_bn"], _sub(fs, "fusion_bn"))
+
+
+def grid_major_to_channel_major(kernel, grid_points):
+    """A Dense kernel (G^3 * C, out) whose rows run grid point outer ->
+    the same kernel with its rows channel outer (C * G^3, out)."""
+    k = np.asarray(kernel)
+    rows, width = k.shape
+    c = rows // grid_points
+    return k.reshape(grid_points, c, width).transpose(1, 0, 2).reshape(rows, width)
+
+
+def _pvrcnn_head(sd, rp, rs, rcfg):
+    _aggregation(sd, "roi_head.roi_grid_pool_layer", rcfg["ROI_GRID_POOL"], rp["roi_grid_pool"],
+                 _sub(rs, "roi_grid_pool"))
+    grid_points = int(rcfg["ROI_GRID_POOL"]["GRID_SIZE"]) ** 3
+    dropout = float(rcfg.get("DP_RATIO", 0.0))
+    pos = 0
+    for i in range(len(rcfg["SHARED_FC"])):
+        dense = dict(rp[f"shared_fc_{i}_0"])
+        if i == 0:
+            dense["kernel"] = grid_major_to_channel_major(dense["kernel"], grid_points)
+        _put_linear(sd, f"roi_head.shared_fc_layer.{pos}", dense)
+        _put_bn(sd, f"roi_head.shared_fc_layer.{pos + 1}", rp[f"shared_fc_{i}_bn_0"],
+                _sub(rs, f"shared_fc_{i}_bn_0"))
+        pos += 4 if (dropout > 0 and i == 0) else 3
+    _fc_tower(sd, "roi_head.cls_layers", rp, rs, "cls_fc", "cls_out", dropout >= 0)
+    _fc_tower(sd, "roi_head.reg_layers", rp, rs, "reg_fc", "reg_out", dropout >= 0)
 
 
 def _pointrcnn_head(sd, rp, rs, rcfg):
@@ -360,8 +456,7 @@ def _pointrcnn_head(sd, rp, rs, rcfg):
     _shared_mlp(sd, "roi_head.merge_down_layer", rp["merge_down"], _sub(rs, "merge_down"))
     k = 0
     while f"sa_{k}" in rp:
-        _shared_mlp(sd, f"roi_head.SA_modules.{k}.mlps.0", rp[f"sa_{k}"]["mlp_0"],
-                    _sub(_sub(rs, f"sa_{k}"), "mlp_0"))
+        _sa_msg(sd, f"roi_head.SA_modules.{k}", rp[f"sa_{k}"], _sub(rs, f"sa_{k}"))
         k += 1
     dropout = float(rcfg.get("DP_RATIO", 0.0)) >= 0
     _fc_tower(sd, "roi_head.cls_layers", rp, rs, "cls_fc", "cls_out", dropout)

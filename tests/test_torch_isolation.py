@@ -8,7 +8,9 @@ datasets too), late fusion, the teacher and the oracle corrector, the CLIs and t
 (built into the port's own ``native/build/``), builds KITTI infos and the gt
 database on a fake tree (``tests/torch_fake_kitti.py``; its PNGs read
 without PIL), PointRCNN in training mode and a KITTI training item with
-gt_sampling, and the custom dataset's infos; and a scan of every import
+gt_sampling, the custom dataset's infos, PV-RCNN in training mode (its
+voxel set abstraction, point head and ROI head) and PV-RCNN++ (SPC
+sampling, VectorPool); and a scan of every import
 statement in the package (``pcp_tpu_torch/bench.py`` included), in the
 measurement scripts under tools_torch/ and in chip_smoke.py. The entry
 points default to the GPU and raise without one.
@@ -84,6 +86,12 @@ def test_fresh_interpreter_loads_no_jax():
         "ccfg = cfg_from_yaml_file('tools/cfgs/custom_models/second.yaml', CfgDict())\n"
         "croot = make_custom_tree(pathlib.Path(tempfile.mkdtemp()) / 'custom')\n"
         "create_custom_infos(ccfg.DATA_CONFIG, ccfg.CLASS_NAMES, croot, croot)\n"
+        "from pcp_tpu_torch.entry import CFG_PVRCNN, PVRCNN_PLUSPLUS, PVRCNN_Z_RANGE\n"
+        "cfg, info, model = build(CFG_PVRCNN, device='cpu', set_cfgs=PVRCNN_Z_RANGE)\n"
+        "model.train()\n"
+        "assert model.module_names[3] == 'pfe' and model.pfe.num_point_features_before_fusion == 544\n"
+        "cfg, info, model = build(CFG_PVRCNN, device='cpu', set_cfgs=PVRCNN_Z_RANGE + PVRCNN_PLUSPLUS)\n"
+        "assert type(model).__name__ == 'PVRCNNPlusPlus' and model.pfe.sample_method == 'SPC'\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + MAP_FREE + IMAGE_FREE!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -17,9 +17,9 @@
 * the prediction annotations and the KITTI AP tables of the same
   detections: within 1e-4;
 * the custom dataset: infos, items and its KITTI-metric eval; and
-  ``custom_models/second.yaml``, whose shipped z range of [-3, 1] m at 0.2 m
-  leaves SECOND's output with no z slice: its forward fails in both
-  packages at ``HeightCompression``.
+  ``custom_models/second.yaml`` and ``pv_rcnn.yaml``, whose shipped z range
+  of [-3, 1] m at 0.2 m leaves the sparse backbone's output with no z
+  slice: their forward fails in both packages at ``HeightCompression``.
 """
 import copy
 import pickle
@@ -341,16 +341,18 @@ def test_custom_infos_items_and_eval_match_jax(custom_trees):
         assert got_ap[key] == pytest.approx(v, abs=1e-4), key
 
 
-def test_custom_second_fails_at_the_z_extent_in_both():
-    """The shipped custom SECOND: 20 z slices of 0.2 m ([-3, 1]) give
-    sparse dims (21, 800, 1408) and, through SECOND's strides, a conv_out
-    with no z slice; HeightCompression then gives 0 channels where
-    NUM_BEV_FEATURES is 256. The xy range is cut to 12.8 m (z as shipped)."""
+@pytest.mark.parametrize("model", ["second", "pv_rcnn"])
+def test_custom_second_fails_at_the_z_extent_in_both(model):
+    """The shipped custom SECOND and PV-RCNN (the same sparse backbone): 20
+    z slices of 0.2 m ([-3, 1]) give sparse dims (21, 800, 1408) and,
+    through the backbone's strides, a conv_out with no z slice;
+    HeightCompression then gives 0 channels where NUM_BEV_FEATURES is 256.
+    The xy range is cut to 12.8 m (z as shipped)."""
     from pcp_tpu.models import build_network as build_jax
     from pcp_tpu.models.detectors.detector_template import DatasetInfo as JaxInfo
     from pcp_tpu_torch.models import DatasetInfo, build_network
 
-    jcfg, tcfg = cfg_pair("tools/cfgs/custom_models/second.yaml",
+    jcfg, tcfg = cfg_pair(f"tools/cfgs/custom_models/{model}.yaml",
                           POINT_CLOUD_RANGE=[0.0, -6.4, -3.0, 12.8, 6.4, 1.0])
     rng = np.random.default_rng(0)
     pts = np.concatenate([rng.uniform([0.5, -6, -2.5], [12, 6, 0.5], (1, 64, 3)),
